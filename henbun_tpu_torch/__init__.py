@@ -1,0 +1,53 @@
+"""henbun_tpu_torch — the PyTorch/CUDA port of henbun_tpu.
+
+The same user-facing API as the JAX package: Parameterized/Variable trees,
+variational posteriors, densities/priors/transforms, GP kernels and
+(sparse) GP sampling, ``@AutoOptimize`` objectives, collections, the
+``henbunrc`` settings, and ``BatchedOptimizer`` fleets. Batched float32
+Cholesky factorizations and triangular solves run through hand-written CUDA
+kernels (``ops/cuda_chol.py``, ``ops/cuda_solve.py``).
+
+A Model lives on ``[cuda] device`` unless the caller names a device; with
+no CUDA device, pass ``device="cpu"``.
+
+>>> import henbun_tpu_torch as hb
+>>> X, Y = hb.models.make_sine_dataset(n=40)
+>>> m = hb.models.GPR(X=X, Y=Y, seed=0)
+>>> opt = m.ELBO_gaussian().compile(learning_rate=0.01)
+>>> opt.optimize(maxiter=2000)
+"""
+from ._version import __version__
+
+from . import _settings
+from ._settings import settings
+
+from .core import rng as random
+from .core.rng import set_seed
+
+from .core import param as _core_param
+from . import transforms
+from . import densities
+from . import priors
+from . import variationals
+from . import ops
+from . import model
+from . import gp
+from . import utils
+from . import batched
+from .batched import BatchedOptimizer
+from . import models
+from . import interop
+
+# `hb.param.*` API surface, as in the JAX package's layout
+from . import param
+
+Model = model.Model
+AutoOptimize = model.AutoOptimize
+Optimizer = model.Optimizer
+adam = model.adam
+Variable = _core_param.Variable
+Parameterized = _core_param.Parameterized
+ParamList = _core_param.ParamList
+Data = _core_param.Data
+MinibatchData = _core_param.MinibatchData
+graph_key = _core_param.graph_key

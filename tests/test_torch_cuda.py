@@ -1,0 +1,104 @@
+"""henbun_tpu_torch on the card: each CUDA kernel against its plain
+version, the launch counters, the wrappers' refusals, and the batched
+Functions' values and gradients on the card against the CPU.
+
+Every test carries the ``cuda`` marker and skips where torch finds no
+CUDA device; the decision is made inside each test. This file imports
+neither JAX nor the JAX package, so on a machine without them it runs
+alone:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from henbun_tpu_torch.ops import cuda_chol, cuda_solve
+from henbun_tpu_torch.ops import linalg as tlinalg
+
+pytestmark = pytest.mark.cuda
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _spd(B, n, seed):
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.normal(size=(B, n, n)))
+    return ((Q * np.logspace(-2, 0, n)) @ np.swapaxes(Q, -1, -2)).astype(np.float32)
+
+
+def _lower(B, n, seed):
+    rng = np.random.default_rng(seed)
+    L = np.tril(rng.normal(size=(B, n, n)) * (0.5 / np.sqrt(n)))
+    L[:, np.arange(n), np.arange(n)] = rng.uniform(1.0, 2.0, size=(B, n))
+    L[:, np.triu_indices(n, 1)[0], np.triu_indices(n, 1)[1]] = np.nan
+    return L.astype(np.float32)
+
+
+@pytest.mark.parametrize("B,n", [(16, 40), (5, 128), (2, 1)])
+def test_cholesky_kernel_matches_plain(B, n):
+    """atol 1e-5 on O(1) factors (FMA in the kernel, mul + sub in torch)."""
+    dev = _card()
+    A = torch.tensor(_spd(B, n, seed=n), device=dev)
+    A[B // 2] = -A[B // 2]
+    before = cuda_chol.cholesky128_vbatched.launches
+    L = cuda_chol.cholesky128_vbatched(A)
+    assert cuda_chol.cholesky128_vbatched.launches == before + 1
+    torch.testing.assert_close(L, cuda_chol.cholesky128_plain(A), rtol=1e-5, atol=1e-5,
+                               equal_nan=True)
+    assert torch.isnan(L[B // 2]).all()
+    ok = torch.isfinite(L).flatten(1).all(1)
+    assert (torch.triu(L[ok], 1) == 0).all()
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("B,n,m", [(16, 40, 40), (16, 40, 1), (3, 128, 128)])
+def test_solve_kernel_matches_plain(B, n, m, transpose):
+    """NaN in the unread triangle; atol 1e-5 on O(1) solutions."""
+    dev = _card()
+    L = torch.tensor(_lower(B, n, seed=n + m), device=dev)
+    R = torch.tensor(np.random.default_rng(m).normal(size=(B, n, m)).astype(np.float32),
+                     device=dev)
+    before = cuda_solve.tri_solve128_vbatched.launches
+    X = cuda_solve.tri_solve128_vbatched(L, R, transpose)
+    assert cuda_solve.tri_solve128_vbatched.launches == before + 1
+    assert torch.isfinite(X).all()
+    torch.testing.assert_close(X, cuda_solve.tri_solve128_plain(L, R, transpose),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_wrappers_raise_on_cuda_input_they_do_not_take():
+    dev = _card()
+    with pytest.raises(ValueError):
+        cuda_chol.cholesky128_vbatched(torch.eye(4, device=dev)[None].expand(2, 4, 4))
+    with pytest.raises(TypeError):
+        cuda_chol.cholesky128_vbatched(torch.eye(4, device=dev, dtype=torch.float64)[None])
+    with pytest.raises(ValueError):
+        cuda_solve.tri_solve128_vbatched(torch.eye(4, device=dev)[None], torch.ones(1, 4, 1))
+
+
+def test_batched_functions_on_the_card_match_the_cpu():
+    """safe_cholesky then tri_solve under torch.func.vmap, value and
+    gradient, on the card (kernels) against the CPU (plain versions):
+    rtol 1e-4, atol 1e-4 of the largest entry."""
+    dev = _card()
+    A = _spd(6, 40, seed=3)
+    R = np.random.default_rng(4).normal(size=(6, 40, 3)).astype(np.float32)
+
+    def run(device):
+        At = torch.tensor(A, device=device, requires_grad=True)
+        Rt = torch.tensor(R, device=device, requires_grad=True)
+        X = torch.func.vmap(lambda a, r: tlinalg.tri_solve(tlinalg.safe_cholesky(a), r))(At, Rt)
+        torch.sum(X ** 2).backward()
+        return [t.detach().cpu().numpy() for t in (X, At.grad, Rt.grad)]
+
+    c1, s1 = cuda_chol.cholesky128_vbatched.launches, cuda_solve.tri_solve128_vbatched.launches
+    on_card = run(dev)
+    assert cuda_chol.cholesky128_vbatched.launches == c1 + 1
+    assert cuda_solve.tri_solve128_vbatched.launches == s1 + 4  # forward, its grad, 2 in chol's grad
+    for got, want in zip(on_card, run("cpu")):
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
