@@ -9,16 +9,26 @@ Run from the root of a checkout. Phases, each of which fails the run:
 2. build: compiles every kernel source (csrc/*.cu) with nvcc for sm_90a,
    one nvcc per source, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the listed shapes (NaN isolation, NaN in the unread triangle), with the
-   kernel's, the plain version's and one torch.linalg call's times;
-4. path: trains the 16-model GPR fleet (GaussianProcess.ipynb, n = 40,
-   fullrank q, Adam 0.01) through BatchedOptimizer for 2,000 steps in
+   the listed shapes, among them those the GPR, Laplace (n = 40) and GPC
+   (n = 60) fleets give it (NaN isolation, NaN in the unread triangle), with the
+   kernel's, the plain version's and (where one exists) one library
+   call's times;
+4. GPR path: trains the 16-model GPR fleet (GaussianProcess.ipynb, n = 40,
+   fullrank q, Adam 0.01) through BatchedOptimizer for 1,000 steps in
    chunks of 200, counting kernel launches; then holds 20 steps against
    the same fleet with use_kernels off under the same injected noise, and
    the fleet's objective on the card against the CPU's;
-5. profile: a traced window of 50 fleet steps (device time by kernel,
-   the card's busy share, host self time by op);
-6. single model: the same GPR alone for 300 steps (torch.linalg path).
+5. Laplace path: trains 16 robust GPRs on their Laplace evidence
+   (log_marginal_laplace_student, benchmarks/laplace_bench.py's data,
+   n = 40, Adam 0.02) for 1,000 steps in chunks of 200, counting K1, K2
+   and K3 launches, and 16 GPCs (log_marginal_laplace, n = 60, Adam 0.05)
+   for 200 steps; each fit's grad_norm must end below 1. Then, for both
+   fleets, 20 steps with the kernels against 20 with use_kernels off and
+   the evidence on the card against the CPU's; and the Laplace fleet's
+   steps/s with the kernels on and off;
+6. profile: traced windows of the GPR fleet and the Laplace fleet (device
+   time by kernel, the card's busy share, device operations a step);
+7. single model: the same GPR alone for 300 steps (torch.linalg path).
 
 Prints a line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -34,14 +44,23 @@ import numpy as np
 
 FLEET = 16
 N = 40
-STEPS = 2000
+STEPS = 1000
 CHUNK = 200
 CHECK_STEPS = 20
 PROFILE_STEPS = 50
 SINGLE_STEPS = 300
+LAPLACE_STEPS = 1000
+GPC_N = 60
+GPC_STEPS = 200
+RATE_STEPS = 100           # Laplace fleet steps/s, kernels on and off
+LAPLACE_PROFILE_STEPS = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 KERNEL_ATOL = 1e-4         # kernel vs plain on O(1) factors: float32, FMA vs mul+sub
+# K3 vs plain on the Newton mode (the tolerances of test_fused_newton.py):
+# float32 products and factorizations in another order through 15
+# dependent iterations; the Bernoulli mode is flatter
+NEWTON_ATOL = {"student_t": 1e-4, "bernoulli_logit": 1e-3}
 
 
 def fail(msg):
@@ -94,6 +113,16 @@ def solve_cost(B, n, m):
     return nbytes, B * m * n * n
 
 
+def newton_cost(B, n, m, iters):
+    """Bytes (Lk, y and var read once, v* written once) and operations of
+    B Newton loops: an iteration of one model does 2nm for f = Lk v,
+    about nm^2 for the system Lk^T |W| Lk, m^3/3 for its factor, 2m^2 for
+    the two substitutions and 8nm for the four trial points' products."""
+    nbytes = B * (n * m + n + 1 + m) * 4
+    per_iter = 2 * n * m + n * m * m + m ** 3 // 3 + 2 * m * m + 8 * n * m
+    return nbytes, B * iters * per_iter
+
+
 def spd(torch, B, n, seed, device):
     """SPD batch, eigenvalues log-spaced in [0.01, 1], from a numpy seed."""
     rng = np.random.default_rng(seed)
@@ -112,6 +141,31 @@ def lower(torch, B, n, seed, device):
     return torch.tensor(L.astype(np.float32), device=device)
 
 
+def newton_batch(torch, tag, B, n, m, seed, device):
+    """(Lk, y, var) for K3: scaled RBF factors of sorted inputs on [0, 6]
+    with sine targets and outliers (test_fused_newton.py's batch), or, for
+    n != m, Gaussian projections (0.4 N(0, 1), its rectangular case);
+    labels y > 0 for bernoulli_logit."""
+    rng = np.random.default_rng(seed)
+    if n == m:
+        Lks, ys = [], []
+        for b in range(B):
+            X = np.sort(rng.uniform(0, 6, (n, 1)))
+            K = np.exp(-0.5 * (X - X.T) ** 2 / 0.7 ** 2) + 1e-4 * np.eye(n)
+            Lks.append(np.linalg.cholesky(K) * (1.0 + 0.2 * (b % 4)))
+            y = np.sin(X) + 0.1 * rng.standard_normal((n, 1))
+            y[::7] += 2.0
+            ys.append(y)
+        Lk, y = np.stack(Lks), np.stack(ys)
+    else:
+        Lk = rng.standard_normal((B, n, m)) * 0.4
+        y = rng.standard_normal((B, n, 1))
+    if tag == "bernoulli_logit":
+        y = (y > 0).astype(np.float64)
+    var = 0.15 + 0.05 * (np.arange(B) % 4)[:, None]
+    return tuple(torch.tensor(a.astype(np.float32), device=device) for a in (Lk, y, var))
+
+
 def max_err(torch, got, want):
     """Largest |got - want| where want is finite; NaN must match NaN."""
     check(bool(torch.equal(torch.isnan(got), torch.isnan(want))), "NaN pattern differs")
@@ -123,9 +177,9 @@ def kernel_phase(torch, hb):
     from henbun_tpu_torch.ops import cuda_chol, cuda_solve
 
     dev = "cuda"
-    errs = {"K1": 0.0, "K2": 0.0}
+    errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
     times = {}
-    for B, n in ((16, N), (16, 128), (96, 128), (3, 7)):
+    for B, n in ((FLEET, N), (FLEET, GPC_N), (16, 128), (96, 128), (3, 7)):
         A = spd(torch, B, n, seed=B * 1000 + n, device=dev)
         L = cuda_chol.cholesky128_vbatched(A)
         torch.cuda.synchronize()
@@ -157,7 +211,8 @@ def kernel_phase(torch, hb):
     errs["K1"] = max(errs["K1"], err)
     print("K1 cholesky NaN isolation B=%d n=%d ok max_abs_err=%.3g" % (FLEET, N, err))
 
-    for B, n, m in ((16, N, N), (16, N, 1), (16, 128, 128)):
+    for B, n, m in ((FLEET, N, N), (FLEET, N, 1), (FLEET, GPC_N, GPC_N), (FLEET, GPC_N, 1),
+                    (16, 128, 128)):
         Lf = lower(torch, B, n, seed=n * 7 + m, device=dev)
         R = torch.tensor(np.random.default_rng(m).normal(size=(B, n, m)).astype(np.float32),
                          device=dev)
@@ -186,16 +241,106 @@ def kernel_phase(torch, hb):
             print("K2 tri_solve B=%d n=%d m=%d transpose=%s max_abs_err=%.3g kernel_ms=%.4f "
                   "plain_ms=%.4f library_ms=%.4f"
                   % (B, n, m, transpose, err, row["ms"], row["plain_ms"], row["library_ms"]))
+    newton_checks(torch, errs, times)
     return errs, times
 
 
-def make_fleet(hb, device):
+def newton_checks(torch, errs, times):
+    """K3 against its plain version: both likelihoods at the Laplace
+    fleet's shape and at n = m = 128, Bernoulli at the GPC fleet's shape,
+    the rectangular (inducing-point) shape, and one model's NaN target
+    isolated from the other 15. No
+    PyTorch call computes a Newton loop, so there is no library time."""
+    from henbun_tpu_torch.ops import cuda_newton
+
+    k3 = cuda_newton.newton_mode_vbatched
+    shapes = [(tag, B, n, m) for B, n, m in ((FLEET, N, N), (FLEET, 128, 128))
+              for tag in ("student_t", "bernoulli_logit")]
+    shapes += [("bernoulli_logit", FLEET, GPC_N, GPC_N), ("bernoulli_logit", 4, 96, 24)]
+    for tag, B, n, m in shapes:
+        Lk, y, var = newton_batch(torch, tag, B, n, m, seed=n + m, device="cuda")
+        v = k3(Lk, y, var, tag, df=3.0)
+        torch.cuda.synchronize()
+        want = cuda_newton.newton_mode_plain(Lk, y, var, tag, df=3.0)
+        check(bool(torch.isfinite(v).all()), "K3 %s B=%d n=%d m=%d: mode not finite" % (tag, B, n, m))
+        err = max_err(torch, v, want)
+        check(err <= NEWTON_ATOL[tag], "K3 %s B=%d n=%d m=%d: max error %g" % (tag, B, n, m, err))
+        errs["K3"] = max(errs["K3"], err)
+        row = {
+            "ms": time_ms(torch, lambda: k3(Lk, y, var, tag, df=3.0), iters=20, warmup=2),
+            "plain_ms": time_ms(
+                torch, lambda: cuda_newton.newton_mode_plain(Lk, y, var, tag, df=3.0),
+                iters=2, warmup=1,
+            ),
+            "library_ms": None,
+        }
+        row["bound_ms"], row["bound_by"] = bound(*newton_cost(B, n, m, 15))
+        times[("K3", tag, B, n, m)] = row
+        print("K3 newton %s B=%d n=%d m=%d iters=15 max_abs_err=%.3g kernel_ms=%.4f "
+              "plain_ms=%.3f bound_ms=%.3g (%s) library_ms=null"
+              % (tag, B, n, m, err, row["ms"], row["plain_ms"], row["bound_ms"],
+                 row["bound_by"]))
+    # NaN isolation: one model's target NaN; that model keeps v = 0 and the
+    # other 15 modes equal those of the run without it
+    Lk, y, var = newton_batch(torch, "student_t", FLEET, N, N, seed=7, device="cuda")
+    clean = k3(Lk, y, var, "student_t", df=3.0)
+    y[5, 3] = float("nan")
+    v = k3(Lk, y, var, "student_t", df=3.0)
+    torch.cuda.synchronize()
+    check(bool((v[5] == 0).all()), "K3: the NaN model moved")
+    others = [i for i in range(FLEET) if i != 5]
+    check(bool(torch.equal(v[others], clean[others])), "K3: NaN reached another model")
+    err = max_err(torch, v, cuda_newton.newton_mode_plain(Lk, y, var, "student_t", df=3.0))
+    check(err <= NEWTON_ATOL["student_t"], "K3 NaN isolation: max error %g" % err)
+    print("K3 newton NaN isolation B=%d n=%d ok max_abs_err=%.3g" % (FLEET, N, err))
+
+
+def robust_toy(n, seed, outliers=4):
+    """benchmarks/laplace_bench.py's data: sin(x) + 0.3 N(0, 1) on sorted
+    uniform inputs in [0, 6], with `outliers` points moved by +-3."""
+    rng = np.random.default_rng(seed)
+    X = np.sort(rng.uniform(0, 6, n)).astype(np.float32)[:, None]
+    y = np.sin(X) + rng.normal(size=X.shape).astype(np.float32) * 0.3
+    idx = rng.choice(n, outliers, replace=False)
+    y[idx] += rng.choice([-3.0, 3.0], outliers)[:, None]
+    return X.astype(np.float32), y.astype(np.float32)
+
+
+def gpc_data(n, seed):
+    """tests/test_gpc.py's data: labels drawn from sigmoid(3 sin x) on
+    sorted uniform inputs in [-3, 3]."""
+    rng = np.random.default_rng(seed)
+    X = np.sort(rng.uniform(-3, 3, n)).astype(np.float32)[:, None]
+    p_true = 1.0 / (1.0 + np.exp(-3.0 * np.sin(X)))
+    return X, (rng.uniform(size=X.shape) < p_true).astype(np.float32)
+
+
+# kind -> (objective, learning rate)
+FLEETS = {
+    "gpr": ("ELBO_gaussian", 0.01),
+    "laplace": ("log_marginal_laplace_student", 0.02),
+    "gpc": ("log_marginal_laplace", 0.05),
+}
+
+
+def make_models(hb, device, kind):
     hb.set_seed(0)
     models = []
     for i in range(FLEET):
-        X, Y = hb.models.make_sine_dataset(n=N, seed=i)
-        models.append(hb.models.GPR(seed=i, X=X, Y=Y, device=device))
-    return hb.BatchedOptimizer(models, "ELBO_gaussian").compile(learning_rate=0.01)
+        if kind == "gpr":
+            X, Y = hb.models.make_sine_dataset(n=N, seed=i)
+        elif kind == "laplace":
+            X, Y = robust_toy(N, seed=i)
+        else:
+            X, Y = gpc_data(GPC_N, seed=i)
+        cls = hb.models.GPC if kind == "gpc" else hb.models.GPR
+        models.append(cls(seed=i, X=X, Y=Y, device=device))
+    return models
+
+
+def make_fleet(hb, device, kind="gpr"):
+    method, lr = FLEETS[kind]
+    return hb.BatchedOptimizer(make_models(hb, device, kind), method).compile(learning_rate=lr)
 
 
 def settings_with(hb, **cuda):
@@ -290,18 +435,132 @@ def agreement_phase(torch, hb):
     print("reference: fleet objective card=%.6f cpu=%.6f rel_diff=%.3g" % (v_card, v_cpu, rel))
 
 
-def profile_phase(torch, hb):
+def kernel_counters():
+    from henbun_tpu_torch.ops import cuda_chol, cuda_newton, cuda_solve
+
+    return {"K1": cuda_chol.cholesky128_vbatched, "K2": cuda_solve.tri_solve128_vbatched,
+            "K3": cuda_newton.newton_mode_vbatched}
+
+
+def laplace_phase(torch, hb):
+    """The Laplace evidence fleets: 16 robust GPRs for LAPLACE_STEPS and 16
+    GPCs for GPC_STEPS, each with every kernel count set to 0 just before
+    and read just after. Each step must launch K3 at least once, K1 and
+    K2 at all; the evidence must stay finite and rise, the fitted
+    hyperparameters be finite, and each fit end at a mode (grad_norm < 1,
+    as test_laplace.py asks)."""
+    counters = kernel_counters()
+    out = {}
+    for kind, steps in (("laplace", LAPLACE_STEPS), ("gpc", GPC_STEPS)):
+        bo = make_fleet(hb, "cuda", kind)
+        with hb.settings.temp_settings(settings_with(hb, scan_chunk=CHUNK)):
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bo.optimize(maxiter=steps)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items()}
+        hist = np.concatenate(bo.history)
+        check(hist.shape == (steps,) and np.isfinite(hist).all(), "%s evidence not finite" % kind)
+        # the first and last 20 steps (the GPC fit is a single chunk)
+        first, last = float(np.mean(hist[:20])), float(np.mean(hist[-20:]))
+        check(last > first, "%s evidence did not rise (%g -> %g)" % (kind, first, last))
+        check(launches["K3"] >= steps, "K3 launched %d times in %d %s steps"
+              % (launches["K3"], steps, kind))
+        check(launches["K1"] > 0 and launches["K2"] > 0, "%s: K1 or K2 never launched %r"
+              % (kind, launches))
+        names = ("k_var", "var") if kind == "laplace" else ("k_var",)
+        for name in names:
+            vals = np.array([getattr(m, name).value[0] for m in bo.models])
+            check(np.isfinite(vals).all(), "%s: fitted %s not finite" % (kind, name))
+        fit = (lambda mm: mm.laplace_student()) if kind == "laplace" else (lambda mm: mm.laplace())
+        gnorm = np.array([float(m.run(fit).grad_norm) for m in bo.models])
+        check(np.isfinite(gnorm).all() and (gnorm < 1).all(),
+              "%s: grad_norm after the fit %s" % (kind, gnorm))
+        print("laplace path: %s fleet=%d steps=%d chunk=%d seconds=%.3f steps_per_s=%.1f "
+              "evidence first20_mean=%.3f last20_mean=%.3f launches K1=%d K2=%d K3=%d "
+              "per_step K1=%.3f K2=%.3f K3=%.3f max_grad_norm=%.3g"
+              % (kind, FLEET, steps, CHUNK, seconds, steps / seconds, first, last,
+                 launches["K1"], launches["K2"], launches["K3"], launches["K1"] / steps,
+                 launches["K2"] / steps, launches["K3"] / steps, gnorm.max()))
+        out[kind] = (launches, steps / seconds)
+    return out
+
+
+def laplace_agreement_phase(torch, hb):
+    """For the Laplace and the GPC fleet: 20 steps with the kernels
+    against 20 with use_kernels off (no kernel may launch then; evidence
+    within 1e-4 of its scale), and the fleet's evidence on the card
+    against the CPU's (plain versions) under the same weights (rtol 1e-4).
+    Then the Laplace fleet's steps/s with the kernels on and off, in turns
+    (on, off, on, off)."""
+    counters = kernel_counters()
+    for kind in ("laplace", "gpc"):
+        runs = {}
+        for use_kernels in (True, False):
+            bo = make_fleet(hb, "cuda", kind)
+            with hb.settings.temp_settings(
+                settings_with(hb, scan_chunk=CHECK_STEPS, use_kernels=use_kernels)
+            ):
+                before = {k: c.launches for k, c in counters.items()}
+                bo.optimize(maxiter=CHECK_STEPS)
+                after = {k: c.launches for k, c in counters.items()}
+            if not use_kernels:
+                check(after == before, "%s: use_kernels off still launched a kernel: %r -> %r"
+                      % (kind, before, after))
+            runs[use_kernels] = bo.history[-1]
+        diff = np.abs(runs[True] - runs[False])
+        rel = float(diff.max() / np.abs(runs[False]).max())
+        check(rel <= 1e-4, "%s kernels vs use_kernels=False: evidence differs by %g of its "
+              "scale" % (kind, rel))
+        print("laplace agreement: %s %d steps kernels vs use_kernels=False max_diff/scale=%.3g "
+              "per_step_max_rel=%.3g"
+              % (kind, CHECK_STEPS, rel, float((diff / np.abs(runs[False])).max())))
+
+        method, lr = FLEETS[kind]
+        on_card = make_fleet(hb, "cuda", kind)
+        params = {k: v.detach().cpu() for k, v in on_card._trainable.items()}
+        cpu_models = make_models(hb, "cpu", kind)
+        for i, m in enumerate(cpu_models):
+            m.set_param_dict({k: v[i] for k, v in params.items()})
+        on_cpu = hb.BatchedOptimizer(cpu_models, method).compile(learning_rate=lr)
+        v_card, v_cpu = float(on_card.run()), float(on_cpu.run())
+        rel = abs(v_card - v_cpu) / abs(v_cpu)
+        check(rel <= 1e-4, "%s fleet evidence card %g vs CPU %g" % (kind, v_card, v_cpu))
+        print("laplace reference: %s fleet evidence card=%.6f cpu=%.6f rel_diff=%.3g"
+              % (kind, v_card, v_cpu, rel))
+
+    rates = {True: [], False: []}
+    for use_kernels in (True, False, True, False):
+        bo = make_fleet(hb, "cuda", "laplace")
+        with hb.settings.temp_settings(
+            settings_with(hb, scan_chunk=RATE_STEPS, use_kernels=use_kernels)
+        ):
+            bo.optimize(maxiter=5)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bo.optimize(maxiter=RATE_STEPS)
+            torch.cuda.synchronize()
+            rates[use_kernels].append(RATE_STEPS / (time.perf_counter() - t0))
+    print("laplace rate: fleet=%d steps=%d steps_per_s kernels_on=%s kernels_off=%s"
+          % (FLEET, RATE_STEPS, " ".join("%.2f" % r for r in rates[True]),
+             " ".join("%.2f" % r for r in rates[False])))
+
+
+def profile_phase(torch, hb, kind="gpr", steps=PROFILE_STEPS):
     """A traced window of fleet steps: device time by kernel and the share
     of the window the card was busy (torch.profiler, CPU and CUDA)."""
     from torch.profiler import ProfilerActivity, profile
 
-    bo = make_fleet(hb, "cuda")
-    with hb.settings.temp_settings(settings_with(hb, scan_chunk=PROFILE_STEPS)):
-        bo.optimize(maxiter=PROFILE_STEPS)  # warm
+    bo = make_fleet(hb, "cuda", kind)
+    with hb.settings.temp_settings(settings_with(hb, scan_chunk=steps)):
+        bo.optimize(maxiter=steps)  # warm
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            bo.optimize(maxiter=PROFILE_STEPS)
+            bo.optimize(maxiter=steps)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
     # device activity only: kernels, copies and sets, not the ranges that
@@ -315,10 +574,10 @@ def profile_phase(torch, hb):
     by_name = {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    print("profile: fleet %d steps wall_ms=%.3f device_busy_ms=%.3f busy_share=%.4f "
+    print("profile: %s fleet %d steps wall_ms=%.3f device_busy_ms=%.3f busy_share=%.4f "
           "device_ops=%d per_step=%.1f"
-          % (PROFILE_STEPS, wall_ms, busy_ms, busy_ms / wall_ms, len(events),
-             len(events) / PROFILE_STEPS))
+          % (kind, steps, wall_ms, busy_ms, busy_ms / wall_ms, len(events),
+             len(events) / steps))
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print("  device %.3f ms (%.1f%% of busy) %s" % (ms, 100 * ms / max(busy_ms, 1e-9), name[:90]))
     host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:8]
@@ -378,19 +637,25 @@ def main():
                 print("  %s: %s" % (name, line.strip()))
 
     errs, times = kernel_phase(torch, hb)
-    launches, steps_per_s = path_phase(torch, hb)
+    gpr_launches, steps_per_s = path_phase(torch, hb)
     agreement_phase(torch, hb)
+    laplace = laplace_phase(torch, hb)
+    laplace_agreement_phase(torch, hb)
     profile_phase(torch, hb)
+    profile_phase(torch, hb, "laplace", LAPLACE_PROFILE_STEPS)
     single_phase(torch, hb)
 
-    k1 = times[("K1", FLEET, N)]
-    k2 = times[("K2", FLEET, N, N, True)]
+    # launches: the Laplace fleet's path run (every kernel runs on it; the
+    # GPR path's K1 and K2 counts are on its own line above)
+    launches = laplace["laplace"][0]
     kernels = []
     for name, src, replaces, key, row, cost in (
-        ("cholesky128_vbatched", "chol128.cu", "pallas_chol.py:140", "K1", k1,
-         chol_cost(FLEET, N)),
-        ("tri_solve128_vbatched", "trisolve128.cu", "pallas_solve.py:140", "K2", k2,
-         solve_cost(FLEET, N, N)),
+        ("cholesky128_vbatched", "chol128.cu", "pallas_chol.py:140", "K1",
+         times[("K1", FLEET, N)], chol_cost(FLEET, N)),
+        ("tri_solve128_vbatched", "trisolve128.cu", "pallas_solve.py:140", "K2",
+         times[("K2", FLEET, N, N, True)], solve_cost(FLEET, N, N)),
+        ("newton_mode_vbatched", "newton128.cu", "pallas_newton.py:276", "K3",
+         times[("K3", "student_t", FLEET, N, N)], newton_cost(FLEET, N, N, 15)),
     ):
         bound_ms, bound_by = bound(*cost)
         kernels.append(dict(
@@ -399,8 +664,11 @@ def main():
             max_abs_err=errs[key], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=bound_ms, bound_by=bound_by, library_ms=row["library_ms"],
         ))
-    print("timed at the path's shapes: K1 B=%d n=%d; K2 B=%d n=m=%d transpose=True; "
-          "fleet steps_per_s=%.1f" % (FLEET, N, FLEET, N, steps_per_s))
+    print("timed at the paths' shapes: K1 B=%d n=%d; K2 B=%d n=m=%d transpose=True; K3 "
+          "student_t B=%d n=m=%d; launches from the Laplace fleet's %d steps (GPR path: "
+          "K1=%d K2=%d); GPR fleet steps_per_s=%.1f, Laplace fleet steps_per_s=%.1f"
+          % (FLEET, N, FLEET, N, FLEET, N, LAPLACE_STEPS, gpr_launches["K1"],
+             gpr_launches["K2"], steps_per_s, laplace["laplace"][1]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,8 @@ variational posteriors, densities/priors/transforms, GP kernels and
 (sparse) GP sampling, ``@AutoOptimize`` objectives, collections, the
 ``henbunrc`` settings, and ``BatchedOptimizer`` fleets. Batched float32
 Cholesky factorizations and triangular solves run through hand-written CUDA
-kernels (``ops/cuda_chol.py``, ``ops/cuda_solve.py``).
+kernels (``ops/cuda_chol.py``, ``ops/cuda_solve.py``), and the batched
+Laplace Newton loop through a third (``ops/cuda_newton.py``).
 
 A Model lives on ``[cuda] device`` unless the caller names a device; with
 no CUDA device, pass ``device="cpu"``.
@@ -35,6 +36,7 @@ from . import gp
 from . import utils
 from . import batched
 from .batched import BatchedOptimizer
+from . import inference
 from . import models
 from . import interop
 

@@ -1,5 +1,7 @@
 """Elementwise log-density functions (the 11 densities of the JAX package),
-on tensors. ``bernoulli`` takes (p, y) and selects p or 1 - p."""
+on tensors. ``bernoulli`` takes (p, y) and selects p or 1 - p;
+``bernoulli_logit`` takes the labels and the logit, the classifier's
+likelihood (inlined in the JAX package's Laplace engine and GPC)."""
 from __future__ import annotations
 
 import numpy as np
@@ -38,6 +40,15 @@ def lognormal(x, mu, var):
 
 def bernoulli(p, y):
     return torch.log(torch.where(y == 1, p, 1 - p))
+
+
+def bernoulli_logit(y, f):
+    """log p(y | f) = y log sigmoid(f) + (1-y) log sigmoid(-f) for labels
+    y in {0, 1}, with log sigmoid(x) = -softplus(-x), stable at large |f|.
+    (Not ``logsigmoid``: its saved buffer breaks the Laplace IFT's gradient
+    of a gradient under ``torch.func.vmap``.)"""
+    softplus = torch.nn.functional.softplus
+    return -y * softplus(-f) - (1.0 - y) * softplus(f)
 
 
 def poisson(lamb, y):

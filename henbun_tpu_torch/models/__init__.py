@@ -1,2 +1,3 @@
-"""Prebuilt model families. This slice carries GP regression."""
+"""Prebuilt model families: GP regression and binary GP classification."""
 from .gpr import GPR, make_sine_dataset
+from .gpc import GPC

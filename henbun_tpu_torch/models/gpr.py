@@ -3,10 +3,11 @@ fullrank Gaussian variational posterior over the whitened latent f, a
 Gaussian or robust Student-t likelihood, and trainable kernel variance /
 lengthscale / noise variance.
 
-This slice of the port carries ``GPR.setUp``, ``f_sample``, ``predict_f``,
-``ELBO_gaussian``, ``ELBO_student``, ``ELBO_analytic`` and
-``make_sine_dataset``; the Laplace, EP and quadrature objectives come with
-their own slices.
+The port carries ``GPR.setUp``, ``f_sample``, ``predict_f``,
+``ELBO_gaussian``, ``ELBO_student``, ``ELBO_analytic``, the Laplace
+evidence ``log_marginal_laplace_student`` with ``laplace_student`` and
+``predict_f_laplace``, and ``make_sine_dataset``; the EP and quadrature
+objectives come with their own slices.
 """
 from __future__ import annotations
 
@@ -79,6 +80,51 @@ class GPR(Model):
             fvar
         ) / (2.0 * self.var[0])
         return ell - self.KL()
+
+    def _student_loglik(self):
+        return lambda f: densities.student_t(self.Y, f, self.var, 3.0)
+
+    def _laplace_Lk(self):
+        return self.kern.Cholesky(self.X) * torch.sqrt(self.k_var)
+
+    @AutoOptimize()
+    def log_marginal_laplace_student(self):
+        """Laplace evidence for the robust Student-t likelihood: no
+        variational posterior to fit. Optimizing it trains only the
+        hyperparameters (kernel, k_var, var); the latent posterior is the
+        Newton mode and curvature computed inside every step
+        (``inference/laplace.py``; a fleet runs the Newton forward through
+        K3). q gets no gradient, and Adam leaves it where it is."""
+        return self.laplace_student().log_marginal
+
+    def laplace_student(self):
+        """Full :class:`~henbun_tpu_torch.inference.laplace.LaplaceResult`
+        at the current hyperparameters: evaluate with
+        ``m.run(lambda mm: mm.laplace_student())``."""
+        from ..inference.laplace import laplace_whitened
+
+        return laplace_whitened(
+            self._student_loglik(), self._laplace_Lk(),
+            fused=("student_t", {"y": self.Y, "var": self.var, "df": 3.0}),
+        )
+
+    def predict_f_laplace(self, x_new):
+        """Laplace posterior marginals (mean [n*, 1], var [n*, 1]) of f at
+        new inputs, deterministic (no draws needed):
+
+            E[f*] = s A^T v_mode,  A = Lk^-1 K(X, x*),  s = sqrt(k_var)
+            V[f*] = s^2 (Kdiag(x*) - colnorm(A)^2 + colnorm(G)^2),
+            G = Lb^-1 A  (posterior-of-v part, B = Lb Lb^T from the mode)
+        """
+        from ..inference.laplace import laplace_latent_marginals, laplace_whitened
+
+        x_new = torch.as_tensor(x_new, dtype=self.X.dtype, device=self.X.device)
+        Lk = self._laplace_Lk()
+        loglik = self._student_loglik()
+        res = laplace_whitened(loglik, Lk)
+        Ks = self.kern.K(self.X, x_new) * self.k_var  # [n, n*]
+        kdiag = self.kern.Kdiag(x_new) * self.k_var[0]  # [n*]
+        return laplace_latent_marginals(loglik, Lk, res, Ks, kdiag)
 
     def _f_marginals(self):
         """Per-point Gaussian marginals of f under q: (mean [n, 1], var [n])."""

@@ -1,6 +1,7 @@
-"""Numeric ops: ``linalg`` (helpers, ``safe_cholesky``, ``tri_solve``) and
-the hand-written CUDA kernels behind them (``cuda_chol``, ``cuda_solve``)."""
-from . import linalg, cuda_chol, cuda_solve
+"""Numeric ops: ``linalg`` (helpers, ``safe_cholesky``, ``tri_solve``),
+``quadrature`` and the hand-written CUDA kernels (``cuda_chol``,
+``cuda_solve`` behind linalg; ``cuda_newton``, the Laplace Newton loop)."""
+from . import linalg, cuda_chol, cuda_solve, cuda_newton, quadrature
 from .linalg import (
     eye,
     clip,
@@ -13,4 +14,5 @@ from .linalg import (
     matmul_hp,
     safe_cholesky,
     tri_solve,
+    tri_solve_T,
 )

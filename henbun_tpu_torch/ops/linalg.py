@@ -256,30 +256,36 @@ class SafeCholesky(torch.autograd.Function):
 
 
 class TriSolve(torch.autograd.Function):
-    """X = L^-1 R for lower-triangular L, reading only L's lower triangle.
-    Backward: Rbar = L^-T Xbar, Lbar = -tril(Rbar X^T) (the cotangent of L
-    lands in its lower triangle only)."""
+    """X = L^-1 R (or L^-T R with ``transpose``) for lower-triangular L,
+    reading only L's lower triangle. Backward: Rbar = L^-T Xbar and
+    Lbar = -tril(Rbar X^T); transposed, Rbar = L^-1 Xbar and
+    Lbar = -tril(X Rbar^T) (the cotangent of L lands in its lower triangle
+    only)."""
 
     @staticmethod
-    def forward(L, R):
-        return _tri_solve_dispatch(L, R, False)
+    def forward(L, R, transpose):
+        return _tri_solve_dispatch(L, R, transpose)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
+        ctx.transpose = inputs[2]
         ctx.save_for_backward(inputs[0], output)
 
     @staticmethod
     def backward(ctx, Xbar):
         L, X = ctx.saved_tensors
-        Rbar = _tri_solve_dispatch(L, Xbar, True)
-        Lbar = -torch.tril(matmul_hp(Rbar, X.mT))
-        return Lbar, Rbar
+        Rbar = _tri_solve_dispatch(L, Xbar, not ctx.transpose)
+        if ctx.transpose:
+            Lbar = -torch.tril(matmul_hp(X, Rbar.mT))
+        else:
+            Lbar = -torch.tril(matmul_hp(Rbar, X.mT))
+        return Lbar, Rbar, None
 
     @staticmethod
-    def vmap(info, in_dims, L, R):
+    def vmap(info, in_dims, L, R, transpose):
         size = info.batch_size
         return TriSolve.apply(
-            _to_front(L, in_dims[0], size), _to_front(R, in_dims[1], size)
+            _to_front(L, in_dims[0], size), _to_front(R, in_dims[1], size), transpose
         ), 0
 
 
@@ -296,5 +302,11 @@ def tri_solve(L, R):
     """X = L^-1 R for lower-triangular L (a vector R is solved as one
     column); see :class:`TriSolve`."""
     if R.ndim == L.ndim - 1:
-        return TriSolve.apply(L, R[..., None])[..., 0]
-    return TriSolve.apply(L, R)
+        return TriSolve.apply(L, R[..., None], False)[..., 0]
+    return TriSolve.apply(L, R, False)
+
+
+def tri_solve_T(L, R):
+    """X = L^-T R for lower-triangular L, reading only its lower triangle;
+    see :class:`TriSolve`."""
+    return TriSolve.apply(L, R, True)

@@ -1,6 +1,7 @@
 """henbun_tpu_torch on the card: each CUDA kernel against its plain
-version, the launch counters, the wrappers' refusals, and the batched
-Functions' values and gradients on the card against the CPU.
+version, the launch counters, the wrappers' refusals, the batched
+Functions' values and gradients on the card against the CPU, and a
+Laplace evidence fleet with the kernels against one without them.
 
 Every test carries the ``cuda`` marker and skips where torch finds no
 CUDA device; the decision is made inside each test. This file imports
@@ -13,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from henbun_tpu_torch.ops import cuda_chol, cuda_solve
+import henbun_tpu_torch as thb
+from henbun_tpu_torch.ops import cuda_chol, cuda_newton, cuda_solve
 from henbun_tpu_torch.ops import linalg as tlinalg
 
 pytestmark = pytest.mark.cuda
@@ -39,7 +41,7 @@ def _lower(B, n, seed):
     return L.astype(np.float32)
 
 
-@pytest.mark.parametrize("B,n", [(16, 40), (5, 128), (2, 1)])
+@pytest.mark.parametrize("B,n", [(16, 40), (16, 60), (5, 128), (2, 1)])
 def test_cholesky_kernel_matches_plain(B, n):
     """atol 1e-5 on O(1) factors (FMA in the kernel, mul + sub in torch)."""
     dev = _card()
@@ -56,7 +58,8 @@ def test_cholesky_kernel_matches_plain(B, n):
 
 
 @pytest.mark.parametrize("transpose", [False, True])
-@pytest.mark.parametrize("B,n,m", [(16, 40, 40), (16, 40, 1), (3, 128, 128)])
+@pytest.mark.parametrize("B,n,m", [(16, 40, 40), (16, 40, 1), (16, 60, 60), (16, 60, 1),
+                                   (3, 128, 128)])
 def test_solve_kernel_matches_plain(B, n, m, transpose):
     """NaN in the unread triangle; atol 1e-5 on O(1) solutions."""
     dev = _card()
@@ -102,3 +105,91 @@ def test_batched_functions_on_the_card_match_the_cpu():
     assert cuda_solve.tri_solve128_vbatched.launches == s1 + 4  # forward, its grad, 2 in chol's grad
     for got, want in zip(on_card, run("cpu")):
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
+
+
+def _newton_batch(tag, B, n, m, seed):
+    rng = np.random.default_rng(seed)
+    if n == m:
+        Lk, y = [], []
+        for b in range(B):
+            X = np.sort(rng.uniform(0, 6, (n, 1)))
+            K = np.exp(-0.5 * (X - X.T) ** 2 / 0.7**2) + 1e-4 * np.eye(n)
+            Lk.append(np.linalg.cholesky(K) * (1.0 + 0.2 * b))
+            yy = np.sin(X) + 0.1 * rng.standard_normal((n, 1))
+            yy[::7] += 2.0
+            y.append(yy)
+        Lk, y = np.stack(Lk), np.stack(y)
+    else:
+        Lk = rng.standard_normal((B, n, m)) * 0.4
+        y = rng.standard_normal((B, n, 1))
+    if tag == "bernoulli_logit":
+        y = (y > 0).astype(np.float64)
+    var = 0.15 + 0.05 * np.arange(B)[:, None]
+    return [a.astype(np.float32) for a in (Lk, y, var)]
+
+
+@pytest.mark.parametrize("tag,B,n,m", [
+    ("student_t", 4, 128, 128), ("bernoulli_logit", 4, 128, 128),
+    ("student_t", 16, 40, 40), ("bernoulli_logit", 16, 60, 60), ("bernoulli_logit", 4, 96, 24),
+])
+def test_newton_kernel_matches_plain(tag, B, n, m):
+    """K3's mode against its plain version: atol 1e-4 (Student-t) and
+    1e-3 (Bernoulli), the tolerances of test_fused_newton.py."""
+    dev = _card()
+    Lk, y, var = (torch.tensor(a, device=dev) for a in _newton_batch(tag, B, n, m, seed=n + m))
+    before = cuda_newton.newton_mode_vbatched.launches
+    v = cuda_newton.newton_mode_vbatched(Lk, y, var, tag, df=3.0)
+    assert cuda_newton.newton_mode_vbatched.launches == before + 1
+    assert v.shape == (B, m, 1) and torch.isfinite(v).all()
+    tol = 1e-4 if tag == "student_t" else 1e-3
+    torch.testing.assert_close(v, cuda_newton.newton_mode_plain(Lk, y, var, tag, df=3.0),
+                               rtol=0, atol=tol)
+
+
+def test_newton_kernel_isolates_a_nan_model():
+    dev = _card()
+    Lk, y, var = (torch.tensor(a, device=dev) for a in _newton_batch("student_t", 6, 40, 40, 1))
+    clean = cuda_newton.newton_mode_vbatched(Lk, y, var, "student_t", df=3.0)
+    y[2, 5] = float("nan")
+    v = cuda_newton.newton_mode_vbatched(Lk, y, var, "student_t", df=3.0)
+    assert (v[2] == 0).all()
+    keep = [0, 1, 3, 4, 5]
+    assert torch.equal(v[keep], clean[keep])
+
+
+def test_laplace_fleet_kernels_on_matches_off():
+    """20 steps of a 4-model Laplace evidence fleet (robust GPR, n = 40)
+    with the kernels and with use_kernels off: evidence within 1e-4 of its
+    scale; K3 launches once a step, and nothing launches with them off."""
+    _card()
+
+    def fleet():
+        thb.set_seed(0)
+        ms = []
+        for i in range(4):
+            rng = np.random.default_rng(i)
+            X = np.sort(rng.uniform(0, 6, 40)).astype(np.float32)[:, None]
+            Y = (np.sin(X) + 0.3 * rng.normal(size=X.shape)).astype(np.float32)
+            Y[rng.choice(40, 4, replace=False)] += 3.0
+            ms.append(thb.models.GPR(seed=i, X=X, Y=Y))
+        return thb.BatchedOptimizer(ms, "log_marginal_laplace_student").compile(learning_rate=0.02)
+
+    hist = {}
+    for use_kernels in (True, False):
+        cfg = thb.settings.get_settings()
+        cfg.cuda.use_kernels = use_kernels
+        cfg.cuda.scan_chunk = 20
+        bo = fleet()
+        counts = (cuda_newton.newton_mode_vbatched.launches, cuda_chol.cholesky128_vbatched.launches,
+                  cuda_solve.tri_solve128_vbatched.launches)
+        with thb.settings.temp_settings(cfg):
+            bo.optimize(maxiter=20)
+        after = (cuda_newton.newton_mode_vbatched.launches, cuda_chol.cholesky128_vbatched.launches,
+                 cuda_solve.tri_solve128_vbatched.launches)
+        if use_kernels:
+            assert after[0] - counts[0] >= 20 and after[1] > counts[1] and after[2] > counts[2]
+        else:
+            assert after == counts
+        hist[use_kernels] = bo.history[-1]
+    assert np.isfinite(hist[True]).all()
+    assert np.abs(hist[True] - hist[False]).max() <= 1e-4 * np.abs(hist[False]).max()
