@@ -28,7 +28,21 @@ Run from the root of a checkout. Phases, each of which fails the run:
    steps/s with the kernels on and off;
 6. profile: traced windows of the GPR fleet and the Laplace fleet (device
    time by kernel, the card's busy share, device operations a step);
-7. single model: the same GPR alone for 300 steps (torch.linalg path).
+7. single model: the same GPR alone for 300 steps (torch.linalg path);
+8. blocked: ops/blocked.py's Cholesky and triangular solves (both
+   transposes, m = n right-hand sides) at n = 2048 and 4096 against
+   torch.linalg, error and times; and at the blocked panel widths, the
+   K2-chunked diagonal solve the blocked loop runs against K6;
+9. exact-gram path: GPRMarginal at n = 4096 (sorted U[0, 6] inputs, sine
+   targets) trained for 50 Adam steps in one chunk on the card, its
+   evidence and gradient at the initial weights against the CPU's,
+   predict_f at 1,000 new points, a traced window of 10 steps, and the
+   evidence step with safe_cholesky's Murray backward against
+   torch.linalg.cholesky's native gradient.
+
+The kernel phase also holds K4 and K5 (cholesky128, cholesky128_batched:
+K1's kernel through their own entries) and K6 (the wide solves) against
+their plain versions; no training path launches them.
 
 Prints a line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -61,6 +75,18 @@ KERNEL_ATOL = 1e-4         # kernel vs plain on O(1) factors: float32, FMA vs mu
 # float32 products and factorizations in another order through 15
 # dependent iterations; the Bernoulli mode is flatter
 NEWTON_ATOL = {"student_t": 1e-4, "bernoulli_logit": 1e-3}
+K4_N = (40, 128)
+K5_SHAPES = ((16, 40), (256, 128))  # B = 256 is past the TPU kernel's VMEM cap
+WIDE_M = (128, 1024, 3968, 8192)    # 3968: blocked_cholesky's first panel at n = 4096
+BLOCKED_N = (2048, 4096)
+# blocked vs torch.linalg, relative to the reference's largest entry:
+# float32 sums over up to n terms in another order
+BLOCKED_RTOL = 1e-4
+MARGINAL_N = 4096
+MARGINAL_STEPS = 50
+MARGINAL_PROFILE_STEPS = 10
+MARGINAL_PREDICT = 1000
+BACKWARD_STEPS = 10        # evidence steps timed per turn, Murray vs native
 
 
 def fail(msg):
@@ -111,6 +137,11 @@ def solve_cost(B, n, m):
     operations (n^2 per column) of B solves."""
     nbytes = B * (n * (n + 1) // 2 + 2 * n * m) * 4
     return nbytes, B * m * n * n
+
+
+def wide_cost(m):
+    """Bytes and operations of one 128-row factor against [128, m]."""
+    return solve_cost(1, 128, m)
 
 
 def newton_cost(B, n, m, iters):
@@ -242,7 +273,101 @@ def kernel_phase(torch, hb):
                   "plain_ms=%.4f library_ms=%.4f"
                   % (B, n, m, transpose, err, row["ms"], row["plain_ms"], row["library_ms"]))
     newton_checks(torch, errs, times)
+    small_chol_checks(torch, errs, times)
+    wide_checks(torch, errs, times)
     return errs, times
+
+
+def small_chol_checks(torch, errs, times):
+    """K4 (one matrix) and K5 (a batch, one block a matrix) against the
+    plain version, through their own entries; for K5 also one negated
+    matrix with NaN in every unread upper triangle."""
+    from henbun_tpu_torch.ops import cuda_chol
+
+    errs["K4"] = errs["K5"] = 0.0
+    for n in K4_N:
+        A = spd(torch, 1, n, seed=n + 1, device="cuda")[0]
+        L = cuda_chol.cholesky128(A)
+        torch.cuda.synchronize()
+        err = max_err(torch, L, cuda_chol.cholesky128_plain(A[None])[0])
+        check(err <= KERNEL_ATOL, "K4 n=%d: max error %g" % (n, err))
+        check(bool((torch.triu(L, 1) == 0).all()), "K4 wrote above the diagonal")
+        errs["K4"] = max(errs["K4"], err)
+        row = {
+            "ms": time_ms(torch, lambda: cuda_chol.cholesky128(A)),
+            "plain_ms": time_ms(torch, lambda: cuda_chol.cholesky128_plain(A[None]), iters=5,
+                                warmup=1),
+            "library_ms": time_ms(torch, lambda: torch.linalg.cholesky_ex(A)),
+        }
+        row["bound_ms"], row["bound_by"] = bound(*chol_cost(1, n))
+        times[("K4", n)] = row
+        print("K4 cholesky128 n=%d max_abs_err=%.3g kernel_ms=%.4f plain_ms=%.4f library_ms=%.4f "
+              "bound_ms=%.3g (%s)" % (n, err, row["ms"], row["plain_ms"], row["library_ms"],
+                                      row["bound_ms"], row["bound_by"]))
+    for B, n in K5_SHAPES:
+        A = spd(torch, B, n, seed=B + n, device="cuda")
+        L = cuda_chol.cholesky128_batched(A)
+        torch.cuda.synchronize()
+        err = max_err(torch, L, cuda_chol.cholesky128_plain(A))
+        row = {
+            "ms": time_ms(torch, lambda: cuda_chol.cholesky128_batched(A)),
+            "plain_ms": time_ms(torch, lambda: cuda_chol.cholesky128_plain(A), iters=5, warmup=1),
+            "library_ms": time_ms(torch, lambda: torch.linalg.cholesky_ex(A)),
+        }
+        bad = B // 3
+        A[bad] = -A[bad]
+        iu = torch.triu_indices(n, n, 1, device="cuda")
+        A[:, iu[0], iu[1]] = float("nan")
+        L = cuda_chol.cholesky128_batched(A)
+        torch.cuda.synchronize()
+        check(bool(torch.isnan(L[bad]).all()), "K5: the non-SPD matrix is not all NaN")
+        check(bool(torch.isfinite(torch.cat([L[:bad], L[bad + 1:]])).all()),
+              "K5: NaN leaked into other matrices or from the unread triangle")
+        err = max(err, max_err(torch, L, cuda_chol.cholesky128_plain(A)))
+        check(err <= KERNEL_ATOL, "K5 B=%d n=%d: max error %g" % (B, n, err))
+        errs["K5"] = max(errs["K5"], err)
+        row["bound_ms"], row["bound_by"] = bound(*chol_cost(B, n))
+        times[("K5", B, n)] = row
+        print("K5 cholesky128_batched B=%d n=%d NaN isolation ok max_abs_err=%.3g kernel_ms=%.4f "
+              "plain_ms=%.4f library_ms=%.4f bound_ms=%.3g (%s)"
+              % (B, n, err, row["ms"], row["plain_ms"], row["library_ms"], row["bound_ms"],
+                 row["bound_by"]))
+
+
+def wide_checks(torch, errs, times):
+    """K6 in both modes at the listed widths against its plain version; the
+    factor holds NaN in the triangle the mode must not read, and none may
+    reach X."""
+    from henbun_tpu_torch.ops import cuda_wide
+
+    errs["K6"] = 0.0
+    for upper in (False, True):
+        entry = cuda_wide.wide_usolve128 if upper else cuda_wide.wide_lsolve128
+        for m in WIDE_M:
+            Lf = lower(torch, 1, 128, seed=m + upper, device="cuda")[0]  # NaN above
+            T = Lf.mT.contiguous() if upper else Lf
+            R = torch.tensor(np.random.default_rng(m).normal(size=(128, m)).astype(np.float32),
+                             device="cuda")
+            X = entry(T, R)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(X).all()), "K6 read the NaN triangle (upper=%s)" % upper)
+            err = max_err(torch, X, cuda_wide.wide_solve128_plain(T, R, upper))
+            check(err <= KERNEL_ATOL, "K6 upper=%s m=%d: max error %g" % (upper, m, err))
+            errs["K6"] = max(errs["K6"], err)
+            Tc = torch.nan_to_num(T, nan=0.0)
+            row = {
+                "ms": time_ms(torch, lambda: entry(T, R)),
+                "plain_ms": time_ms(torch, lambda: cuda_wide.wide_solve128_plain(T, R, upper),
+                                    iters=3, warmup=1),
+                "library_ms": time_ms(
+                    torch, lambda: torch.linalg.solve_triangular(Tc, R, upper=upper)),
+            }
+            row["bound_ms"], row["bound_by"] = bound(*wide_cost(m))
+            times[("K6", upper, m)] = row
+            print("K6 %s m=%d max_abs_err=%.3g kernel_ms=%.4f plain_ms=%.4f library_ms=%.4f "
+                  "bound_ms=%.3g (%s)"
+                  % (entry.__name__, m, err, row["ms"], row["plain_ms"], row["library_ms"],
+                     row["bound_ms"], row["bound_by"]))
 
 
 def newton_checks(torch, errs, times):
@@ -550,17 +675,22 @@ def laplace_agreement_phase(torch, hb):
 
 
 def profile_phase(torch, hb, kind="gpr", steps=PROFILE_STEPS):
-    """A traced window of fleet steps: device time by kernel and the share
-    of the window the card was busy (torch.profiler, CPU and CUDA)."""
+    """A traced window of fleet steps (see profile_window)."""
+    return profile_window(torch, hb, "%s fleet" % kind, make_fleet(hb, "cuda", kind), steps)
+
+
+def profile_window(torch, hb, label, opt, steps):
+    """A traced window of `steps` optimization steps after as many to warm
+    up: device time by kernel and the share of the window the card was
+    busy (torch.profiler, CPU and CUDA). Returns the busy share."""
     from torch.profiler import ProfilerActivity, profile
 
-    bo = make_fleet(hb, "cuda", kind)
     with hb.settings.temp_settings(settings_with(hb, scan_chunk=steps)):
-        bo.optimize(maxiter=steps)  # warm
+        opt.optimize(maxiter=steps)  # warm
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            bo.optimize(maxiter=steps)
+            opt.optimize(maxiter=steps)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
     # device activity only: kernels, copies and sets, not the ranges that
@@ -574,15 +704,16 @@ def profile_phase(torch, hb, kind="gpr", steps=PROFILE_STEPS):
     by_name = {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    print("profile: %s fleet %d steps wall_ms=%.3f device_busy_ms=%.3f busy_share=%.4f "
+    print("profile: %s %d steps wall_ms=%.3f device_busy_ms=%.3f busy_share=%.4f "
           "device_ops=%d per_step=%.1f"
-          % (kind, steps, wall_ms, busy_ms, busy_ms / wall_ms, len(events),
+          % (label, steps, wall_ms, busy_ms, busy_ms / wall_ms, len(events),
              len(events) / steps))
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print("  device %.3f ms (%.1f%% of busy) %s" % (ms, 100 * ms / max(busy_ms, 1e-9), name[:90]))
     host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:8]
     for a in host:
         print("  host self %.3f ms x%d %s" % (a.self_cpu_time_total / 1e3, a.count, a.key[:70]))
+    return busy_ms / wall_ms
 
 
 def single_phase(torch, hb):
@@ -603,6 +734,232 @@ def single_phase(torch, hb):
     check(after == before, "the single-model path (2-D) reached a batched kernel")
     print("single: n=%d steps=%d steps_per_s=%.1f objective first=%.2f last=%.2f device=%s"
           % (N, SINGLE_STEPS, SINGLE_STEPS / seconds, hist[0], hist[-1], opt.device))
+
+
+def rel_err(torch, got, want):
+    """max |got - want| over max |want|; NaN anywhere fails."""
+    check(bool(torch.isfinite(got).all()), "non-finite result")
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def blocked_phase(torch, hb):
+    """ops/blocked.py against torch.linalg at n = 2048 and 4096 (error
+    relative to the reference's largest entry, both times), then, at each
+    panel width of blocked_cholesky and at the m = n width of
+    blocked_tri_solve, the K2-chunked diagonal solve (_diag_solve, what
+    the loop runs) against K6. Returns {n: {...}} for the summary."""
+    from henbun_tpu_torch.ops import blocked, cuda_wide
+
+    out = {}
+    for n in BLOCKED_N:
+        iters = 3 if n < max(BLOCKED_N) else 5  # the n = 2048 variant is the shorter
+        g = torch.Generator(device="cuda")
+        g.manual_seed(n)
+        G = torch.randn(n, n, generator=g, device="cuda")
+        A = G @ G.T / n + 2.0 * torch.eye(n, device="cuda")
+        Lx, info = torch.linalg.cholesky_ex(A)
+        check(int(info) == 0, "blocked: the test matrix is not SPD")
+        err = rel_err(torch, blocked.blocked_cholesky(A), Lx)
+        check(err <= BLOCKED_RTOL, "blocked_cholesky n=%d: error %g of max|L|" % (n, err))
+        row = {"chol_err": err,
+               "chol_ms": time_ms(torch, lambda: blocked.blocked_cholesky(A), iters, 1),
+               "chol_lib_ms": time_ms(torch, lambda: torch.linalg.cholesky_ex(A), iters, 1)}
+        R = torch.randn(n, n, generator=g, device="cuda")
+        for transpose in (False, True):
+            Xx = torch.linalg.solve_triangular(Lx.mT if transpose else Lx, R, upper=transpose)
+            err = rel_err(torch, blocked.blocked_tri_solve(Lx, R, transpose), Xx)
+            check(err <= BLOCKED_RTOL, "blocked_tri_solve n=%d T=%s: error %g of max|X|"
+                  % (n, transpose, err))
+            row["solve_err_%d" % transpose] = err
+            row["solve_ms_%d" % transpose] = time_ms(
+                torch, lambda: blocked.blocked_tri_solve(Lx, R, transpose), iters, 1)
+            row["solve_lib_ms_%d" % transpose] = time_ms(
+                torch, lambda: torch.linalg.solve_triangular(
+                    Lx.mT if transpose else Lx, R, upper=transpose), iters, 1)
+        print("blocked n=%d cholesky err=%.3g blocked_ms=%.3f cholesky_ex_ms=%.3f ratio=%.2f; "
+              "tri_solve m=n T=False err=%.3g blocked_ms=%.3f solve_triangular_ms=%.3f ratio=%.2f; "
+              "T=True err=%.3g blocked_ms=%.3f solve_triangular_ms=%.3f ratio=%.2f"
+              % (n, row["chol_err"], row["chol_ms"], row["chol_lib_ms"],
+                 row["chol_ms"] / row["chol_lib_ms"], row["solve_err_0"], row["solve_ms_0"],
+                 row["solve_lib_ms_0"], row["solve_ms_0"] / row["solve_lib_ms_0"],
+                 row["solve_err_1"], row["solve_ms_1"], row["solve_lib_ms_1"],
+                 row["solve_ms_1"] / row["solve_lib_ms_1"]))
+
+        # the panel solves: one diagonal factor against each panel width
+        L128 = Lx[:128, :128].contiguous()
+        U128 = L128.mT.contiguous()  # K6's upper mode reads U; the transpose is hoisted
+        k2_sum = k6_sum = 0.0
+        shown = []
+        for w in range(n - 128, 0, -128):
+            Bw = torch.randn(128, w, generator=g, device="cuda")
+            err = rel_err(torch, cuda_wide.wide_lsolve128(L128, Bw),
+                          blocked._diag_solve(L128, Bw, False))
+            check(err <= BLOCKED_RTOL, "K6 vs K2-chunked at width %d: %g" % (w, err))
+            t2 = time_ms(torch, lambda: blocked._diag_solve(L128, Bw, False), 10, 2)
+            t6 = time_ms(torch, lambda: cuda_wide.wide_lsolve128(L128, Bw), 10, 2)
+            k2_sum += t2
+            k6_sum += t6
+            if w in (n - 128, 1024, 128):
+                shown.append("w=%d K2=%.4f K6=%.4f" % (w, t2, t6))
+        Bn = torch.randn(128, n, generator=g, device="cuda")
+        tT = {}
+        for transpose in (False, True):
+            t2 = time_ms(torch, lambda: blocked._diag_solve(L128, Bn, transpose), 10, 2)
+            t6 = time_ms(torch, (lambda: cuda_wide.wide_usolve128(U128, Bn)) if transpose
+                         else (lambda: cuda_wide.wide_lsolve128(L128, Bn)), 10, 2)
+            tT[transpose] = (t2, t6)
+        print("panels n=%d: cholesky's %d widths summed K2-chunked_ms=%.4f K6_ms=%.4f "
+              "K6/K2=%.2f (%s); tri_solve width m=%d K2-chunked/K6 ms: L %.4f/%.4f, L^T "
+              "%.4f/%.4f (K6 upper on the hoisted L^T)"
+              % (n, n // 128 - 1, k2_sum, k6_sum, k6_sum / k2_sum, ", ".join(shown), n,
+                 tT[False][0], tT[False][1], tT[True][0], tT[True][1]))
+        row.update(k2_sum=k2_sum, k6_sum=k6_sum)
+        out[n] = row
+    return out
+
+
+def marginal_data(n, seed=0):
+    """Sorted U[0, 6] inputs, y = sin(x) + 0.3 N(0, 1), numpy seed."""
+    rng = np.random.default_rng(seed)
+    X = np.sort(rng.uniform(0, 6, n)).astype(np.float32)[:, None]
+    Y = (np.sin(X) + 0.3 * rng.standard_normal(X.shape)).astype(np.float32)
+    return X, Y
+
+
+def value_and_grad(opt):
+    """An Optimizer's objective and gradients at its current weights."""
+    for t in opt._trainable.values():
+        t.grad = None
+    val, _ = opt._evaluate_core_aux(opt._trainable, opt._frozen, opt._data_args(),
+                                    opt.model.generator, None)
+    val.backward()
+    return val.item(), {k: t.grad.detach().cpu().numpy() for k, t in opt._trainable.items()}
+
+
+def marginal_phase(torch, hb):
+    """The exact-gram path: GPRMarginal at n = 4096 on the card. The
+    evidence and its gradients at the initial weights against the CPU's
+    (rtol 1e-4 of the evidence, and of each gradient leaf's largest
+    entry), 50 Adam steps (lr 0.01) in one chunk with every kernel count
+    set to 0 just before and read just after, predict_f at 1,000 new
+    points, a traced window of 10 steps."""
+    X, Y = marginal_data(MARGINAL_N)
+    hb.set_seed(0)
+    model = hb.models.GPRMarginal(seed=0, X=X, Y=Y)
+    opt = model.log_marginal().compile(learning_rate=0.01)
+    v_card, g_card = value_and_grad(opt)
+    cpu = hb.models.GPRMarginal(seed=0, X=X, Y=Y, device="cpu")
+    cpu.set_param_dict({k: v.detach().cpu() for k, v in model.param_dict().items()})
+    t0 = time.perf_counter()
+    v_cpu, g_cpu = value_and_grad(cpu.log_marginal().compile(learning_rate=0.01))
+    cpu_s = time.perf_counter() - t0
+    rel = abs(v_card - v_cpu) / abs(v_cpu)
+    check(rel <= 1e-4, "GPRMarginal evidence card %g vs CPU %g" % (v_card, v_cpu))
+    grel = {k: float(np.abs(g_card[k] - g_cpu[k]).max() / np.abs(g_cpu[k]).max()) for k in g_cpu}
+    check(max(grel.values()) <= 1e-4, "GPRMarginal gradient card vs CPU %r" % grel)
+    print("marginal reference: n=%d evidence card=%.6f cpu=%.6f rel_diff=%.3g grad rel_diff %s "
+          "(CPU value and gradient %.2f s)"
+          % (MARGINAL_N, v_card, v_cpu, rel,
+             " ".join("%s=%.3g" % kv for kv in sorted(grel.items())), cpu_s))
+
+    counters = all_counters()
+    with hb.settings.temp_settings(settings_with(hb, scan_chunk=MARGINAL_STEPS)):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.optimize(maxiter=MARGINAL_STEPS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+    hist = opt.history[-1]
+    check(hist.shape == (MARGINAL_STEPS,) and np.isfinite(hist).all(),
+          "GPRMarginal evidence not finite")
+    check(hist[-1] > hist[0], "GPRMarginal evidence did not rise (%g -> %g)" % (hist[0], hist[-1]))
+    x_new = np.linspace(-0.5, 6.5, MARGINAL_PREDICT, dtype=np.float32)[:, None]
+    mean, var = model.run(lambda mm: mm.predict_f(x_new))
+    check(mean.shape == (MARGINAL_PREDICT, 1) and var.shape == (MARGINAL_PREDICT, 1),
+          "predict_f shapes %s %s" % (tuple(mean.shape), tuple(var.shape)))
+    check(bool(torch.isfinite(mean).all() and torch.isfinite(var).all() and (var >= 0).all()),
+          "predict_f: non-finite mean or negative variance")
+    fitted = {k: float(getattr(model, k).value[0]) for k in ("k_var", "var")}
+    fitted["lengthscale"] = float(model.kern.lengthscales.value[0])
+    print("marginal path: n=%d steps=%d chunk=%d seconds=%.3f steps_per_s=%.2f ms_per_step=%.2f "
+          "evidence first=%.3f last=%.3f fitted %s launches %s predict_f n*=%d var_min=%.3g"
+          % (MARGINAL_N, MARGINAL_STEPS, MARGINAL_STEPS, seconds, MARGINAL_STEPS / seconds,
+             1e3 * seconds / MARGINAL_STEPS, hist[0], hist[-1],
+             " ".join("%s=%.4f" % kv for kv in sorted(fitted.items())),
+             " ".join("%s=%d" % kv for kv in sorted(launches.items())), MARGINAL_PREDICT,
+             float(var.min())))
+    busy = profile_window(torch, hb, "GPRMarginal n=%d" % MARGINAL_N, opt, MARGINAL_PROFILE_STEPS)
+    ms_murray, ms_native = backward_phase(torch, hb, X, Y, fitted)
+    return {"launches": launches, "steps_per_s": MARGINAL_STEPS / seconds, "busy": busy,
+            "murray_ms": ms_murray, "native_ms": ms_native}
+
+
+def backward_phase(torch, hb, X, Y, fitted):
+    """The exact-gram evidence step (value and gradient in the three
+    hyperparameters, at the fitted ones) with safe_cholesky and tri_solve
+    (Murray backward: two [n, n] triangular solves) against
+    torch.linalg.cholesky and solve_triangular under autograd's native
+    gradient, BACKWARD_STEPS steps a turn in turns Murray, native,
+    native, Murray. The two must agree (rtol 1e-4 of the evidence, 1e-3
+    of each gradient: two float32 backwards in another order)."""
+    from henbun_tpu_torch.ops import linalg
+
+    Xt = torch.tensor(X, device="cuda")
+    Yt = torch.tensor(Y, device="cuda")
+    n = Xt.shape[0]
+    eye = torch.eye(n, device="cuda")
+    start = [fitted["lengthscale"], fitted["k_var"], fitted["var"]]
+
+    def step(native):
+        theta = torch.tensor(np.log(start), dtype=torch.float32, device="cuda",
+                             requires_grad=True)
+        ls, k_var, var = torch.exp(theta)
+        Xs = Xt / ls
+        d2 = -2 * linalg.matmul_hp(Xs, Xs.mT) + Xs.square().sum(-1)[:, None] + Xs.square().sum(-1)
+        S = k_var * torch.exp(-d2 / 2) + var * eye
+        if native:
+            L = torch.linalg.cholesky(S + 1e-6 * eye)
+            alpha = torch.linalg.solve_triangular(L, Yt, upper=False)
+        else:
+            L = linalg.safe_cholesky(S, 1e-6)
+            alpha = linalg.tri_solve(L, Yt)
+        val = -0.5 * torch.sum(alpha ** 2) - torch.sum(torch.log(torch.diagonal(L)))
+        val.backward()
+        return val, theta.grad
+
+    results = {True: step(True), False: step(False)}
+    v_n, g_n = (t.detach().cpu().numpy() for t in results[True])
+    v_m, g_m = (t.detach().cpu().numpy() for t in results[False])
+    check(abs(v_m - v_n) <= 1e-4 * abs(v_n), "Murray vs native evidence %g vs %g" % (v_m, v_n))
+    check(np.all(np.abs(g_m - g_n) <= 1e-3 * np.abs(g_n).max()),
+          "Murray vs native gradient %s vs %s" % (g_m, g_n))
+    ms = {True: [], False: []}
+    for native in (False, True, True, False):
+        step(native)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(BACKWARD_STEPS):
+            step(native)
+        torch.cuda.synchronize()
+        ms[native].append(1e3 * (time.perf_counter() - t0) / BACKWARD_STEPS)
+    print("cholesky backward n=%d evidence step ms: murray=%s native=%s murray/native=%.3f "
+          "(grad murray %s native %s)"
+          % (n, " ".join("%.3f" % t for t in ms[False]), " ".join("%.3f" % t for t in ms[True]),
+             np.mean(ms[False]) / np.mean(ms[True]), np.array2string(g_m, precision=4),
+             np.array2string(g_n, precision=4)))
+    return float(np.mean(ms[False])), float(np.mean(ms[True]))
+
+
+def all_counters():
+    from henbun_tpu_torch.ops import cuda_chol, cuda_wide
+
+    out = kernel_counters()
+    out.update(K4=cuda_chol.cholesky128, K5=cuda_chol.cholesky128_batched,
+               K6l=cuda_wide.wide_lsolve128, K6u=cuda_wide.wide_usolve128)
+    return out
 
 
 def main():
@@ -637,6 +994,10 @@ def main():
                 print("  %s: %s" % (name, line.strip()))
 
     errs, times = kernel_phase(torch, hb)
+    # K4-K6 have no production caller: these are the kernel phase's own calls
+    check_calls = {k: c.launches for k, c in all_counters().items() if k[:2] in ("K4", "K5", "K6")}
+    print("kernel phase launches (checks and timing) %s"
+          % " ".join("%s=%d" % kv for kv in sorted(check_calls.items())))
     gpr_launches, steps_per_s = path_phase(torch, hb)
     agreement_phase(torch, hb)
     laplace = laplace_phase(torch, hb)
@@ -644,10 +1005,20 @@ def main():
     profile_phase(torch, hb)
     profile_phase(torch, hb, "laplace", LAPLACE_PROFILE_STEPS)
     single_phase(torch, hb)
+    t0 = time.perf_counter()
+    blocked = blocked_phase(torch, hb)
+    print("blocked phase: %.1f s" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    marginal = marginal_phase(torch, hb)
+    print("exact-gram phase: %.1f s" % (time.perf_counter() - t0))
 
-    # launches: the Laplace fleet's path run (every kernel runs on it; the
-    # GPR path's K1 and K2 counts are on its own line above)
-    launches = laplace["laplace"][0]
+    # launches: the Laplace fleet's path run for K1-K3 (every one of them
+    # runs on it; the GPR path's K1 and K2 counts are on its own line
+    # above); K4-K6 have no production caller, so no path launches them:
+    # their count is the exact-gram path's (0 on every path)
+    launches = dict(laplace["laplace"][0])
+    ml = marginal["launches"]
+    launches.update(K4=ml["K4"], K5=ml["K5"], K6=ml["K6l"] + ml["K6u"])
     kernels = []
     for name, src, replaces, key, row, cost in (
         ("cholesky128_vbatched", "chol128.cu", "pallas_chol.py:140", "K1",
@@ -656,6 +1027,12 @@ def main():
          times[("K2", FLEET, N, N, True)], solve_cost(FLEET, N, N)),
         ("newton_mode_vbatched", "newton128.cu", "pallas_newton.py:276", "K3",
          times[("K3", "student_t", FLEET, N, N)], newton_cost(FLEET, N, N, 15)),
+        ("cholesky128", "chol128.cu", "pallas_chol.py:73", "K4",
+         times[("K4", 128)], chol_cost(1, 128)),
+        ("cholesky128_batched", "chol128.cu", "pallas_chol.py:175", "K5",
+         times[("K5", 256, 128)], chol_cost(256, 128)),
+        ("wide_lsolve128/wide_usolve128", "widesolve128.cu", "pallas_wide.py:122", "K6",
+         times[("K6", False, 3968)], wide_cost(3968)),
     ):
         bound_ms, bound_by = bound(*cost)
         kernels.append(dict(
@@ -669,6 +1046,14 @@ def main():
           "K1=%d K2=%d); GPR fleet steps_per_s=%.1f, Laplace fleet steps_per_s=%.1f"
           % (FLEET, N, FLEET, N, FLEET, N, LAPLACE_STEPS, gpr_launches["K1"],
              gpr_launches["K2"], steps_per_s, laplace["laplace"][1]))
+    print("timed at their own shapes: K4 n=128, K5 B=256 n=128, K6 wide_lsolve128 m=3968; "
+          "K4-K6 launches from the exact-gram path's %d steps (no path calls them; kernel "
+          "phase: %s); GPRMarginal n=%d steps_per_s=%.2f busy_share=%.4f evidence step ms "
+          "murray=%.3f native=%.3f; blocked/library n=%d cholesky %.2f"
+          % (MARGINAL_STEPS, " ".join("%s=%d" % kv for kv in sorted(check_calls.items())),
+             MARGINAL_N, marginal["steps_per_s"], marginal["busy"], marginal["murray_ms"],
+             marginal["native_ms"], max(BLOCKED_N),
+             blocked[max(BLOCKED_N)]["chol_ms"] / blocked[max(BLOCKED_N)]["chol_lib_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

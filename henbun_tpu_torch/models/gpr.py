@@ -6,8 +6,9 @@ lengthscale / noise variance.
 The port carries ``GPR.setUp``, ``f_sample``, ``predict_f``,
 ``ELBO_gaussian``, ``ELBO_student``, ``ELBO_analytic``, the Laplace
 evidence ``log_marginal_laplace_student`` with ``laplace_student`` and
-``predict_f_laplace``, and ``make_sine_dataset``; the EP and quadrature
-objectives come with their own slices.
+``predict_f_laplace``, ``make_sine_dataset``, and ``GPRMarginal`` (the
+exact-marginal evidence, ``predict_f``); the EP and quadrature objectives
+come with their own slices.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import torch
 from .. import densities, gp, transforms, variationals
 from ..core.param import Data, Variable
 from ..model import Model, AutoOptimize
-from ..ops.linalg import fill_triangular, matmul_hp
+from ..ops.linalg import fill_triangular, matmul_hp, safe_cholesky, tri_solve
 
 
 class GPR(Model):
@@ -145,6 +146,58 @@ class GPR(Model):
             A = matmul_hp(Lk, Lq)  # [n, n]
             fvar = torch.square(s) * torch.sum(torch.square(A), dim=1)
         return fmean, fvar
+
+
+class GPRMarginal(Model):
+    """Exact-marginal GP regression: hyperparameters only, the latent f
+    integrated out analytically. Each evaluation factors one [n, n] gram:
+    a single 2-D matrix, which ``safe_cholesky`` sends to torch.linalg."""
+
+    def setUp(self, X, Y, kern=None):
+        self.X = Data(X)
+        self.Y = Data(Y)
+        self.kern = kern if kern is not None else gp.kernels.UnitRBF()
+        self.k_var = Variable(shape=[1], transform=transforms.positive)
+        self.var = Variable(shape=[1], transform=transforms.positive)
+
+    @AutoOptimize()
+    def log_marginal(self):
+        """log N(y | 0, k_var K + var I) through the Cholesky-factor density,
+        plus weak LogNormal hyperpriors."""
+        K = self.k_var * self.kern.K(self.X)
+        n = K.shape[0]
+        S = K + self.var * torch.eye(n, dtype=K.dtype, device=K.device)
+        L = safe_cholesky(S, 1e-6)
+        lml = densities.multivariate_normal(self.Y, torch.zeros_like(self.Y), L)
+        log_prior = (
+            torch.sum(densities.lognormal(self.kern.lengthscales, 0.0, 1.0))
+            + torch.sum(densities.lognormal(self.k_var, 0.0, 1.0))
+            + torch.sum(densities.lognormal(self.var, -2.0, 1.0))
+        )
+        return lml + log_prior
+
+    def predict_f(self, x_new):
+        """Exact GP posterior at new inputs (no sampling), all kernel blocks
+        scaled by k_var:
+
+            mean = K*n (Knn + var I)^-1 y
+            var  = k** - diag(K*n (Knn + var I)^-1 Kn*), floored at 0
+
+        Returns (mean [n*, 1], variance [n*, 1]); evaluate under
+        ``Model.run``."""
+        x_new = torch.as_tensor(x_new, dtype=self.X.dtype, device=self.X.device)
+        Knn = self.k_var * self.kern.K(self.X)
+        n = Knn.shape[0]
+        # the default (1e-4-scale) jitter: gradients through a float32
+        # Cholesky of an ill-conditioned gram need it
+        L = safe_cholesky(Knn + self.var * torch.eye(n, dtype=Knn.dtype, device=Knn.device))
+        Ksn = self.k_var * self.kern.K(x_new, self.X)  # [n*, n]
+        A = tri_solve(L, Ksn.mT)  # [n, n*]
+        alpha = tri_solve(L, self.Y)
+        mean = A.mT @ alpha  # [n*, 1]
+        kss = self.k_var * self.kern.Kdiag(x_new)  # [n*]
+        var = torch.clamp(kss - torch.sum(torch.square(A), dim=0), min=0.0)
+        return mean, var[:, None]
 
 
 def make_sine_dataset(n=40, noise=0.3, seed=0):

@@ -1,7 +1,9 @@
 """Numeric ops: ``linalg`` (helpers, ``safe_cholesky``, ``tri_solve``),
-``quadrature`` and the hand-written CUDA kernels (``cuda_chol``,
-``cuda_solve`` behind linalg; ``cuda_newton``, the Laplace Newton loop)."""
-from . import linalg, cuda_chol, cuda_solve, cuda_newton, quadrature
+``quadrature``, ``blocked`` (blocked Cholesky and triangular solve for
+large single matrices) and the hand-written CUDA kernels (``cuda_chol``,
+``cuda_solve`` behind linalg; ``cuda_newton``, the Laplace Newton loop;
+``cuda_wide``, the wide-right-hand-side solves)."""
+from . import linalg, cuda_chol, cuda_solve, cuda_newton, cuda_wide, blocked, quadrature
 from .linalg import (
     eye,
     clip,

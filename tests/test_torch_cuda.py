@@ -1,7 +1,9 @@
 """henbun_tpu_torch on the card: each CUDA kernel against its plain
 version, the launch counters, the wrappers' refusals, the batched
-Functions' values and gradients on the card against the CPU, and a
-Laplace evidence fleet with the kernels against one without them.
+Functions' values and gradients on the card against the CPU, a Laplace
+evidence fleet with the kernels against one without them, the blocked
+algorithms against torch.linalg, and the exact-gram GPRMarginal evidence
+on the card against the CPU.
 
 Every test carries the ``cuda`` marker and skips where torch finds no
 CUDA device; the decision is made inside each test. This file imports
@@ -15,7 +17,7 @@ import pytest
 import torch
 
 import henbun_tpu_torch as thb
-from henbun_tpu_torch.ops import cuda_chol, cuda_newton, cuda_solve
+from henbun_tpu_torch.ops import blocked, cuda_chol, cuda_newton, cuda_solve, cuda_wide
 from henbun_tpu_torch.ops import linalg as tlinalg
 
 pytestmark = pytest.mark.cuda
@@ -193,3 +195,116 @@ def test_laplace_fleet_kernels_on_matches_off():
         hist[use_kernels] = bo.history[-1]
     assert np.isfinite(hist[True]).all()
     assert np.abs(hist[True] - hist[False]).max() <= 1e-4 * np.abs(hist[False]).max()
+
+
+@pytest.mark.parametrize("n", [40, 128])
+def test_cholesky128_single_matches_plain(n):
+    """K4 through its own entry and counter; NaN in the unread upper
+    triangle; a negated matrix gives an all-NaN factor. atol 1e-5."""
+    dev = _card()
+    A = torch.tensor(_spd(1, n, seed=n)[0], device=dev)
+    iu = torch.triu_indices(n, n, 1, device=dev)
+    A[iu[0], iu[1]] = float("nan")
+    before = (cuda_chol.cholesky128.launches, cuda_chol.cholesky128_vbatched.launches)
+    L = cuda_chol.cholesky128(A)
+    assert (cuda_chol.cholesky128.launches, cuda_chol.cholesky128_vbatched.launches) == (
+        before[0] + 1, before[1])
+    assert L.shape == (n, n) and torch.isfinite(L).all()
+    torch.testing.assert_close(L, cuda_chol.cholesky128_plain(A[None])[0], rtol=1e-5, atol=1e-5)
+    assert torch.isnan(cuda_chol.cholesky128(-torch.tril(A))).all()
+
+
+@pytest.mark.parametrize("B,n", [(16, 40), (256, 128)])
+def test_cholesky128_batched_matches_plain_and_isolates_nan(B, n):
+    """K5 (B = 256 is past the TPU kernel's VMEM batch cap): one negated
+    matrix, NaN in every unread upper triangle; the negated factor is all
+    NaN and the others match the plain version, atol 1e-5."""
+    dev = _card()
+    A = torch.tensor(_spd(B, n, seed=B + n), device=dev)
+    A[B // 3] = -A[B // 3]
+    iu = torch.triu_indices(n, n, 1, device=dev)
+    A[:, iu[0], iu[1]] = float("nan")
+    before = cuda_chol.cholesky128_batched.launches
+    L = cuda_chol.cholesky128_batched(A)
+    assert cuda_chol.cholesky128_batched.launches == before + 1
+    assert torch.isnan(L[B // 3]).all()
+    keep = torch.ones(B, dtype=torch.bool, device=dev)
+    keep[B // 3] = False
+    assert torch.isfinite(L[keep]).all()
+    torch.testing.assert_close(L, cuda_chol.cholesky128_plain(A), rtol=1e-5, atol=1e-5,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("m", [128, 1024, 3968, 8192])
+@pytest.mark.parametrize("upper", [False, True])
+def test_wide_solve_kernel_matches_plain(m, upper):
+    """K6 in both modes; NaN in the triangle it must not read never
+    reaches X. atol 1e-5 on O(1) solutions."""
+    dev = _card()
+    L = _lower(1, 128, seed=m)[0]  # NaN above the diagonal
+    T = torch.tensor(np.ascontiguousarray(L.T) if upper else L, device=dev)
+    Bm = torch.tensor(np.random.default_rng(m).normal(size=(128, m)).astype(np.float32),
+                      device=dev)
+    entry = cuda_wide.wide_usolve128 if upper else cuda_wide.wide_lsolve128
+    before = entry.launches
+    X = entry(T, Bm)
+    assert entry.launches == before + 1
+    assert torch.isfinite(X).all()
+    torch.testing.assert_close(X, cuda_wide.wide_solve128_plain(T, Bm, upper),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_wide_solve_refuses_what_it_does_not_take():
+    dev = _card()
+    with pytest.raises(ValueError):
+        cuda_wide.wide_lsolve128(torch.eye(128, device=dev), torch.ones(128, 100, device=dev))
+    with pytest.raises(ValueError):
+        cuda_wide.wide_usolve128(torch.eye(128, device=dev), torch.ones(128, 128))
+
+
+def test_blocked_matches_torch_linalg():
+    """n = 512: blocked_cholesky against cholesky_ex, blocked_tri_solve
+    (both transposes, 512 columns) against solve_triangular; max error
+    within 1e-5 of the reference's largest entry. The panels run K2."""
+    dev = _card()
+    n = 512
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    G = torch.randn(n, n, generator=g, device=dev)
+    A = G @ G.T / n + 2.0 * torch.eye(n, device=dev)
+    before = cuda_solve.tri_solve128_vbatched.launches
+    L = blocked.blocked_cholesky(A)
+    assert cuda_solve.tri_solve128_vbatched.launches == before + 3
+    Lx = torch.linalg.cholesky_ex(A)[0]
+    assert (L - Lx).abs().max() <= 1e-5 * Lx.abs().max()
+    R = torch.randn(n, n, generator=g, device=dev)
+    for transpose in (False, True):
+        X = blocked.blocked_tri_solve(Lx, R, transpose)
+        Xx = torch.linalg.solve_triangular(Lx.mT if transpose else Lx, R, upper=transpose)
+        assert (X - Xx).abs().max() <= 1e-5 * Xx.abs().max()
+
+
+def test_gpr_marginal_on_the_card_matches_the_cpu():
+    """n = 512: the exact evidence and its gradients on the card against
+    the CPU under the same weights; rtol 1e-4 of the evidence, and of each
+    gradient leaf's largest entry."""
+    dev = _card()
+    rng = np.random.default_rng(0)
+    X = np.sort(rng.uniform(0, 6, 512)).astype(np.float32)[:, None]
+    Y = (np.sin(X) + 0.3 * rng.standard_normal(X.shape)).astype(np.float32)
+
+    def value_and_grad(device):
+        thb.set_seed(0)
+        opt = thb.models.GPRMarginal(seed=0, X=X, Y=Y, device=device).log_marginal().compile()
+        val, _ = opt._evaluate_core_aux(opt._trainable, opt._frozen, opt._data_args(),
+                                        opt.model.generator, None)
+        val.backward()
+        return val.item(), {k: t.grad.cpu().numpy() for k, t in opt._trainable.items()}
+
+    v_card, g_card = value_and_grad(dev)
+    v_cpu, g_cpu = value_and_grad("cpu")
+    assert np.isfinite(v_card)
+    assert abs(v_card - v_cpu) <= 1e-4 * abs(v_cpu)
+    for k, want in g_cpu.items():
+        np.testing.assert_allclose(g_card[k], want, rtol=1e-4, atol=1e-4 * np.abs(want).max(),
+                                   err_msg=k)

@@ -93,7 +93,7 @@ def test_cuda_settings_and_temp_settings_stack():
 
 
 def test_kernel_build_contract():
-    assert _build.sources() == ["chol128", "newton128", "trisolve128"]
+    assert _build.sources() == ["chol128", "newton128", "trisolve128", "widesolve128"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert _build.BUILD_DIR.endswith(os.path.join("build", "henbun_tpu_torch"))
