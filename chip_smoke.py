@@ -10,9 +10,12 @@ Run from the root of a checkout. Phases, each of which fails the run:
    one nvcc per source, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the listed shapes, among them those the GPR, Laplace (n = 40) and GPC
-   (n = 60) fleets give it (NaN isolation, NaN in the unread triangle), with the
-   kernel's, the plain version's and (where one exists) one library
-   call's times;
+   (n = 60) fleets give it (NaN isolation, a pivot failing past the first
+   panels at n = 128, NaN in the unread triangle), with the kernel's, the
+   plain version's and (where one exists) one library call's times: the
+   wall time per call (CUDA events around back-to-back calls, which at
+   small shapes is the host's dispatch floor) and the device time per
+   call (torch.profiler, device_ms);
 4. GPR path: trains the 16-model GPR fleet (GaussianProcess.ipynb, n = 40,
    fullrank q, Adam 0.01) through BatchedOptimizer for 1,000 steps in
    chunks of 200, counting kernel launches; then holds 20 steps against
@@ -71,6 +74,7 @@ LAPLACE_PROFILE_STEPS = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 KERNEL_ATOL = 1e-4         # kernel vs plain on O(1) factors: float32, FMA vs mul+sub
+PROFILE_TRIES = 3          # device_ms: traces of one window before it gives up
 # K3 vs plain on the Newton mode (the tolerances of test_fused_newton.py):
 # float32 products and factorizations in another order through 15
 # dependent iterations; the Bernoulli mode is flatter
@@ -101,7 +105,9 @@ def check(cond, msg):
 
 def time_ms(torch, fn, iters=50, warmup=5):
     """Mean milliseconds per call on the card (CUDA events around `iters`
-    back-to-back calls, after `warmup`)."""
+    back-to-back calls, after `warmup`). At small shapes this is the host's
+    dispatch floor (wrapper checks, the ctypes call, the allocation), not
+    the kernel: device_ms reads the kernel's own time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -113,6 +119,60 @@ def time_ms(torch, fn, iters=50, warmup=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_events(torch, prof):
+    """The device activity of a profile: kernels, copies and sets, not the
+    ranges that record_function annotations project onto the device."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def device_ms(torch, kernel_fn, kernel, library_fn=None, iters=20, warmup=3):
+    """Device milliseconds per call, from torch.profiler: `warmup` calls of
+    kernel_fn, then `iters` timed ones, then `iters` of library_fn (warmed
+    up before the window). The kernel's time is that of the last `iters`
+    kernels whose name holds `kernel`, over `iters` (the tracer can drop
+    the first device events of a window, hence the warm-up inside it); the
+    library call's is every other device operation after them, over
+    `iters` (None without one). A window whose trace lost kernels is
+    traced again, up to PROFILE_TRIES times. Returns (kernel, library)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if library_fn is not None:
+        for _ in range(warmup):
+            library_fn()
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(warmup):
+                kernel_fn()
+            torch.cuda.synchronize()
+            for _ in range(iters):
+                kernel_fn()
+            torch.cuda.synchronize()
+            if library_fn is not None:
+                for _ in range(iters):
+                    library_fn()
+                torch.cuda.synchronize()
+        events = sorted(device_events(torch, prof), key=lambda e: e.time_range.start)
+        mine = [e for e in events if kernel in e.name]
+        if len(mine) >= iters:
+            break
+        print("profiler: %d device events of %s for %d timed calls (of %d events); tracing "
+              "again" % (len(mine), kernel, iters, len(events)))
+    check(len(mine) >= iters, "profiler: %d device events of %s for %d timed calls in %d tries"
+          % (len(mine), kernel, iters, PROFILE_TRIES))
+    mine = mine[-iters:]
+    k_ms = sum(e.time_range.elapsed_us() for e in mine) / 1e3 / iters
+    check(k_ms > 0, "profiler: no device time for %s" % kernel)
+    if library_fn is None:
+        return k_ms, None
+    last = mine[-1].time_range.start
+    others = [e for e in events if kernel not in e.name and e.time_range.start > last]
+    check(len(others) > 0, "profiler: no device time for the library call beside %s" % kernel)
+    return k_ms, sum(e.time_range.elapsed_us() for e in others) / 1e3 / iters
 
 
 def bound(nbytes, flops):
@@ -159,6 +219,18 @@ def spd(torch, B, n, seed, device):
     rng = np.random.default_rng(seed)
     Q, _ = np.linalg.qr(rng.normal(size=(B, n, n)))
     A = (Q * np.logspace(-2, 0, n)) @ np.swapaxes(Q, -1, -2)
+    return torch.tensor(A.astype(np.float32), device=device)
+
+
+def late_pivot(torch, B, n, bad, k, seed, device):
+    """spd()'s batch with matrix `bad` made indefinite at pivot k: its
+    [k, k] entry lowered by twice the square of its Cholesky pivot, so
+    pivots 0..k-1 stay positive, pivot k comes out as minus the old one,
+    and the matrix has one negative eigenvalue. NaN in every unread upper
+    triangle."""
+    A = spd(torch, B, n, seed, "cpu").double().numpy()
+    A[bad, k, k] -= 2.0 * np.linalg.cholesky(A[bad])[k, k] ** 2
+    A[:, np.triu_indices(n, 1)[0], np.triu_indices(n, 1)[1]] = np.nan
     return torch.tensor(A.astype(np.float32), device=device)
 
 
@@ -223,9 +295,14 @@ def kernel_phase(torch, hb):
             "plain_ms": time_ms(torch, lambda: cuda_chol.cholesky128_plain(A), iters=5, warmup=1),
             "library_ms": time_ms(torch, lambda: torch.linalg.cholesky_ex(A)),
         }
+        row["device_ms"], row["library_device_ms"] = device_ms(
+            torch, lambda: cuda_chol.cholesky128_vbatched(A), "chol128",
+            lambda: torch.linalg.cholesky_ex(A))
         times[("K1", B, n)] = row
-        print("K1 cholesky B=%d n=%d max_abs_err=%.3g kernel_ms=%.4f plain_ms=%.4f "
-              "library_ms=%.4f" % (B, n, err, row["ms"], row["plain_ms"], row["library_ms"]))
+        print("K1 cholesky B=%d n=%d max_abs_err=%.3g kernel_ms=%.4f device_ms=%.4f "
+              "plain_ms=%.4f library_ms=%.4f library_device_ms=%.4f"
+              % (B, n, err, row["ms"], row["device_ms"], row["plain_ms"], row["library_ms"],
+                 row["library_device_ms"]))
     # NaN isolation: one non-SPD matrix in the batch; the upper triangle,
     # which the kernel must not read, holds NaN too
     A = spd(torch, FLEET, N, seed=5, device=dev)
@@ -241,9 +318,10 @@ def kernel_phase(torch, hb):
     check(err <= KERNEL_ATOL, "K1 NaN isolation: max error %g" % err)
     errs["K1"] = max(errs["K1"], err)
     print("K1 cholesky NaN isolation B=%d n=%d ok max_abs_err=%.3g" % (FLEET, N, err))
+    late_pivot_checks(torch, errs, "K1", cuda_chol.cholesky128_vbatched, FLEET)
 
     for B, n, m in ((FLEET, N, N), (FLEET, N, 1), (FLEET, GPC_N, GPC_N), (FLEET, GPC_N, 1),
-                    (16, 128, 128)):
+                    (16, 128, 128), (16, 128, 1), (1, 128, 1)):
         Lf = lower(torch, B, n, seed=n * 7 + m, device=dev)
         R = torch.tensor(np.random.default_rng(m).normal(size=(B, n, m)).astype(np.float32),
                          device=dev)
@@ -268,14 +346,41 @@ def kernel_phase(torch, hb):
                     ),
                 ),
             }
+            row["device_ms"], row["library_device_ms"] = device_ms(
+                torch, lambda: cuda_solve.tri_solve128_vbatched(Lf, R, transpose), "trisolve128",
+                lambda: torch.linalg.solve_triangular(Lt.mT if transpose else Lt, R,
+                                                      upper=transpose))
             times[("K2", B, n, m, transpose)] = row
             print("K2 tri_solve B=%d n=%d m=%d transpose=%s max_abs_err=%.3g kernel_ms=%.4f "
-                  "plain_ms=%.4f library_ms=%.4f"
-                  % (B, n, m, transpose, err, row["ms"], row["plain_ms"], row["library_ms"]))
+                  "device_ms=%.4f plain_ms=%.4f library_ms=%.4f library_device_ms=%.4f"
+                  % (B, n, m, transpose, err, row["ms"], row["device_ms"], row["plain_ms"],
+                     row["library_ms"], row["library_device_ms"]))
     newton_checks(torch, errs, times)
     small_chol_checks(torch, errs, times)
     wide_checks(torch, errs, times)
     return errs, times
+
+
+def late_pivot_checks(torch, errs, key, entry, B, n=128, k=100):
+    """A pivot that fails past the first panels: matrix B // 3 of a
+    B-batch at n = 128 made indefinite at pivot k (late_pivot). Its factor
+    must be all NaN, every other one finite and within KERNEL_ATOL of the
+    plain version."""
+    from henbun_tpu_torch.ops import cuda_chol
+
+    bad = B // 3
+    A = late_pivot(torch, B, n, bad, k, seed=B + k, device="cuda")
+    L = entry(A)
+    torch.cuda.synchronize()
+    check(bool(torch.isnan(L[bad]).all()), "%s: the matrix failing at pivot %d is not all NaN"
+          % (key, k))
+    check(bool(torch.isfinite(torch.cat([L[:bad], L[bad + 1:]])).all()),
+          "%s: a late pivot failure leaked NaN into other matrices" % key)
+    err = max_err(torch, L, cuda_chol.cholesky128_plain(A))
+    check(err <= KERNEL_ATOL, "%s late pivot: max error %g" % (key, err))
+    errs[key] = max(errs[key], err)
+    print("%s late pivot (matrix %d of B=%d n=%d fails at pivot %d) NaN isolation ok "
+          "max_abs_err=%.3g" % (key, bad, B, n, k, err))
 
 
 def small_chol_checks(torch, errs, times):
@@ -299,11 +404,15 @@ def small_chol_checks(torch, errs, times):
                                 warmup=1),
             "library_ms": time_ms(torch, lambda: torch.linalg.cholesky_ex(A)),
         }
+        row["device_ms"], row["library_device_ms"] = device_ms(
+            torch, lambda: cuda_chol.cholesky128(A), "chol128",
+            lambda: torch.linalg.cholesky_ex(A))
         row["bound_ms"], row["bound_by"] = bound(*chol_cost(1, n))
         times[("K4", n)] = row
-        print("K4 cholesky128 n=%d max_abs_err=%.3g kernel_ms=%.4f plain_ms=%.4f library_ms=%.4f "
-              "bound_ms=%.3g (%s)" % (n, err, row["ms"], row["plain_ms"], row["library_ms"],
-                                      row["bound_ms"], row["bound_by"]))
+        print("K4 cholesky128 n=%d max_abs_err=%.3g kernel_ms=%.4f device_ms=%.4f plain_ms=%.4f "
+              "library_ms=%.4f library_device_ms=%.4f bound_ms=%.3g (%s)"
+              % (n, err, row["ms"], row["device_ms"], row["plain_ms"], row["library_ms"],
+                 row["library_device_ms"], row["bound_ms"], row["bound_by"]))
     for B, n in K5_SHAPES:
         A = spd(torch, B, n, seed=B + n, device="cuda")
         L = cuda_chol.cholesky128_batched(A)
@@ -314,6 +423,9 @@ def small_chol_checks(torch, errs, times):
             "plain_ms": time_ms(torch, lambda: cuda_chol.cholesky128_plain(A), iters=5, warmup=1),
             "library_ms": time_ms(torch, lambda: torch.linalg.cholesky_ex(A)),
         }
+        row["device_ms"], row["library_device_ms"] = device_ms(
+            torch, lambda: cuda_chol.cholesky128_batched(A), "chol128",
+            lambda: torch.linalg.cholesky_ex(A))
         bad = B // 3
         A[bad] = -A[bad]
         iu = torch.triu_indices(n, n, 1, device="cuda")
@@ -329,9 +441,11 @@ def small_chol_checks(torch, errs, times):
         row["bound_ms"], row["bound_by"] = bound(*chol_cost(B, n))
         times[("K5", B, n)] = row
         print("K5 cholesky128_batched B=%d n=%d NaN isolation ok max_abs_err=%.3g kernel_ms=%.4f "
-              "plain_ms=%.4f library_ms=%.4f bound_ms=%.3g (%s)"
-              % (B, n, err, row["ms"], row["plain_ms"], row["library_ms"], row["bound_ms"],
-                 row["bound_by"]))
+              "device_ms=%.4f plain_ms=%.4f library_ms=%.4f library_device_ms=%.4f "
+              "bound_ms=%.3g (%s)"
+              % (B, n, err, row["ms"], row["device_ms"], row["plain_ms"], row["library_ms"],
+                 row["library_device_ms"], row["bound_ms"], row["bound_by"]))
+    late_pivot_checks(torch, errs, "K5", cuda_chol.cholesky128_batched, 256)
 
 
 def wide_checks(torch, errs, times):
@@ -362,12 +476,16 @@ def wide_checks(torch, errs, times):
                 "library_ms": time_ms(
                     torch, lambda: torch.linalg.solve_triangular(Tc, R, upper=upper)),
             }
+            row["device_ms"], row["library_device_ms"] = device_ms(
+                torch, lambda: entry(T, R), "widesolve128",
+                lambda: torch.linalg.solve_triangular(Tc, R, upper=upper))
             row["bound_ms"], row["bound_by"] = bound(*wide_cost(m))
             times[("K6", upper, m)] = row
-            print("K6 %s m=%d max_abs_err=%.3g kernel_ms=%.4f plain_ms=%.4f library_ms=%.4f "
-                  "bound_ms=%.3g (%s)"
-                  % (entry.__name__, m, err, row["ms"], row["plain_ms"], row["library_ms"],
-                     row["bound_ms"], row["bound_by"]))
+            print("K6 %s m=%d max_abs_err=%.3g kernel_ms=%.4f device_ms=%.4f plain_ms=%.4f "
+                  "library_ms=%.4f library_device_ms=%.4f bound_ms=%.3g (%s)"
+                  % (entry.__name__, m, err, row["ms"], row["device_ms"], row["plain_ms"],
+                     row["library_ms"], row["library_device_ms"], row["bound_ms"],
+                     row["bound_by"]))
 
 
 def newton_checks(torch, errs, times):
@@ -398,13 +516,16 @@ def newton_checks(torch, errs, times):
                 iters=2, warmup=1,
             ),
             "library_ms": None,
+            "library_device_ms": None,
         }
+        row["device_ms"] = device_ms(torch, lambda: k3(Lk, y, var, tag, df=3.0), "newton128",
+                                     iters=5, warmup=1)[0]
         row["bound_ms"], row["bound_by"] = bound(*newton_cost(B, n, m, 15))
         times[("K3", tag, B, n, m)] = row
         print("K3 newton %s B=%d n=%d m=%d iters=15 max_abs_err=%.3g kernel_ms=%.4f "
-              "plain_ms=%.3f bound_ms=%.3g (%s) library_ms=null"
-              % (tag, B, n, m, err, row["ms"], row["plain_ms"], row["bound_ms"],
-                 row["bound_by"]))
+              "device_ms=%.4f plain_ms=%.3f bound_ms=%.3g (%s) library_ms=null"
+              % (tag, B, n, m, err, row["ms"], row["device_ms"], row["plain_ms"],
+                 row["bound_ms"], row["bound_by"]))
     # NaN isolation: one model's target NaN; that model keeps v = 0 and the
     # other 15 modes equal those of the run without it
     Lk, y, var = newton_batch(torch, "student_t", FLEET, N, N, seed=7, device="cuda")
@@ -693,13 +814,7 @@ def profile_window(torch, hb, label, opt, steps):
             opt.optimize(maxiter=steps)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
-    # device activity only: kernels, copies and sets, not the ranges that
-    # record_function annotations project onto the device timeline
-    events = [
-        e for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and not getattr(e, "is_user_annotation", False)
-    ]
+    events = device_events(torch, prof)
     busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
     by_name = {}
     for e in events:
@@ -710,6 +825,12 @@ def profile_window(torch, hb, label, opt, steps):
              len(events) / steps))
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print("  device %.3f ms (%.1f%% of busy) %s" % (ms, 100 * ms / max(busy_ms, 1e-9), name[:90]))
+    # the port's kernels, each summed over its instantiations
+    shares = {src: sum(ms for name, ms in by_name.items() if src in name)
+              for src in ("chol128", "trisolve128", "newton128", "widesolve128")}
+    print("  kernels' share of busy: %s" % ", ".join(
+        "%s %.3f ms (%.1f%%)" % (src, ms, 100 * ms / max(busy_ms, 1e-9))
+        for src, ms in shares.items()))
     host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:8]
     for a in host:
         print("  host self %.3f ms x%d %s" % (a.self_cpu_time_total / 1e3, a.count, a.key[:70]))
@@ -1038,8 +1159,9 @@ def main():
         kernels.append(dict(
             name=name, route="cuda", source="henbun_tpu_torch/csrc/" + src,
             replaces="henbun_tpu/ops/" + replaces, launches=launches[key],
-            max_abs_err=errs[key], ms=row["ms"], plain_ms=row["plain_ms"],
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=row["library_ms"],
+            max_abs_err=errs[key], ms=row["ms"], device_ms=row["device_ms"],
+            plain_ms=row["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=row["library_ms"], library_device_ms=row["library_device_ms"],
         ))
     print("timed at the paths' shapes: K1 B=%d n=%d; K2 B=%d n=m=%d transpose=True; K3 "
           "student_t B=%d n=m=%d; launches from the Laplace fleet's %d steps (GPR path: "

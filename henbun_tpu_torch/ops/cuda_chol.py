@@ -12,11 +12,14 @@ batch into VMEM:
   with one cell per matrix (body ``_chol_kernel``);
 * :func:`cholesky128` (K4), for ``cholesky128``: one tile.
 
-On the card one thread block factors one matrix with its lower triangle in
-shared memory, so K1's grid over the batch already is K5's grid, and K4 is
-its B = 1 case; the three entries share one launch and no copy of the
-kernel's body. What bounds the kernel at the training path's shapes
-(B = 16, n = 40) is its n-step barrier chain and the launch latency, not
+On the card one thread block factors one matrix, held in shared memory,
+so K1's grid over the batch already is K5's grid, and K4 is its B = 1
+case; the three entries share one launch and no copy of the kernel's
+body. The kernel is a blocked right-looking Cholesky over 32-column
+panels: one warp factors each diagonal block with shuffles, the rows below
+it are solved a thread a row, and all threads apply a register-tiled
+trailing update, three block barriers a panel. What bounds it is that
+chain of pivots (a square root and a divide each) and the barriers, not
 FLOPs or bytes (see the source). ``safe_cholesky`` (``ops/linalg.py``)
 reaches K1 for every batched float32 factorization with n <= 128 on a CUDA
 tensor while ``[cuda] use_kernels`` is on; K4 and K5, like their TPU

@@ -7,10 +7,13 @@ Replaces the TPU kernel ``henbun_tpu/ops/pallas_solve.py``
 ``_usolve_kernel_vbatch``) in both modes: ``transpose=False`` solves
 L X = R by forward substitution, ``transpose=True`` solves L^T X = R by back
 substitution. Only L's lower triangle is read in either mode. On the card
-the kernel runs one thread block per matrix and one thread per right-hand
-column; at the training path's shapes (B = 16, n = m = 40) its n-long
-dependency chain and the launch latency bound it, not FLOPs or bytes (see
-the source). ``ops/linalg.py`` reaches it for batched float32 solves with
+the kernel runs one thread block per matrix with the factor and the
+solution in shared memory, blocked over 32-row diagonal blocks: a thread
+a right-hand column solves each diagonal block, then all threads update
+the rows still open with a register-tiled product, so every thread works
+even at m = 1. Each column's chain of n divides and the barriers between
+blocks bound it, not FLOPs or bytes (see the source). ``ops/linalg.py``
+reaches it for batched float32 solves with
 n, m <= 128 on CUDA tensors while ``[cuda] use_kernels`` is on: the forward
 and gradient solves of ``tri_solve`` and both L^T solves of
 ``safe_cholesky``'s backward.

@@ -43,25 +43,62 @@ def _lower(B, n, seed):
     return L.astype(np.float32)
 
 
-@pytest.mark.parametrize("B,n", [(16, 40), (16, 60), (5, 128), (2, 1)])
+@pytest.mark.parametrize("B,n", [(16, 40), (16, 60), (5, 128), (2, 1)] + [
+    (B, n) for n in (31, 32, 33, 64, 65, 127, 128) for B in (1, 3, 256)])
 def test_cholesky_kernel_matches_plain(B, n):
-    """atol 1e-5 on O(1) factors (FMA in the kernel, mul + sub in torch)."""
+    """The fleets' sizes and the 32-column panel edges (n = 31-33, 64, 65,
+    127, 128); in a batch, matrix B // 2 is negated and must come out all
+    NaN. atol 1e-5 on O(1) factors: the kernel applies each panel's updates
+    in the plain version's order, FMA against mul + sub."""
     dev = _card()
     A = torch.tensor(_spd(B, n, seed=n), device=dev)
-    A[B // 2] = -A[B // 2]
+    if B > 1:
+        A[B // 2] = -A[B // 2]
     before = cuda_chol.cholesky128_vbatched.launches
     L = cuda_chol.cholesky128_vbatched(A)
     assert cuda_chol.cholesky128_vbatched.launches == before + 1
     torch.testing.assert_close(L, cuda_chol.cholesky128_plain(A), rtol=1e-5, atol=1e-5,
                                equal_nan=True)
-    assert torch.isnan(L[B // 2]).all()
     ok = torch.isfinite(L).flatten(1).all(1)
+    assert int(ok.sum()) == B - (B > 1)
+    if B > 1:
+        assert torch.isnan(L[B // 2]).all()
     assert (torch.triu(L[ok], 1) == 0).all()
+
+
+def _late_pivot(B, n, bad, k, seed):
+    """_spd's batch with matrix `bad` indefinite at pivot k (its [k, k]
+    entry lowered by twice its pivot's square: one negative eigenvalue,
+    pivots 0..k-1 unchanged); NaN in every unread upper triangle."""
+    A = _spd(B, n, seed).astype(np.float64)
+    A[bad, k, k] -= 2.0 * np.linalg.cholesky(A[bad])[k, k] ** 2
+    A[:, np.triu_indices(n, 1)[0], np.triu_indices(n, 1)[1]] = np.nan
+    return A.astype(np.float32)
+
+
+@pytest.mark.parametrize("entry", ["cholesky128_vbatched", "cholesky128_batched"])
+@pytest.mark.parametrize("B,n,k", [(16, 128, 100), (3, 128, 127), (5, 65, 64), (4, 40, 33)])
+def test_cholesky_kernel_late_pivot_failure(entry, B, n, k):
+    """A pivot that fails past the first 32-column panel (k = 33 to 127)
+    makes that matrix's whole factor NaN, the earlier panels' columns
+    included, and no other matrix of the batch is touched (atol 1e-5
+    against the plain version)."""
+    dev = _card()
+    bad = B // 3
+    A = torch.tensor(_late_pivot(B, n, bad, k, seed=n + k), device=dev)
+    L = getattr(cuda_chol, entry)(A)
+    assert torch.isnan(L[bad]).all()
+    keep = torch.ones(B, dtype=torch.bool, device=dev)
+    keep[bad] = False
+    assert torch.isfinite(L[keep]).all()
+    torch.testing.assert_close(L, cuda_chol.cholesky128_plain(A), rtol=1e-5, atol=1e-5,
+                               equal_nan=True)
 
 
 @pytest.mark.parametrize("transpose", [False, True])
 @pytest.mark.parametrize("B,n,m", [(16, 40, 40), (16, 40, 1), (16, 60, 60), (16, 60, 1),
-                                   (3, 128, 128)])
+                                   (3, 128, 128)] + [
+    (4, n, m) for n in (32, 33, 65, 128) for m in (1, 33, 128)])
 def test_solve_kernel_matches_plain(B, n, m, transpose):
     """NaN in the unread triangle; atol 1e-5 on O(1) solutions."""
     dev = _card()

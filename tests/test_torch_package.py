@@ -105,6 +105,20 @@ def test_kernel_build_contract():
             _build.nvcc_path()
 
 
+def test_phase_trace_marks_the_start_and_every_barrier():
+    """The traced copies that utils/phase_trace.py builds on the card: one
+    clock64 mark at the kernel's start and one after each __syncthreads."""
+    from henbun_tpu_torch.utils import phase_trace
+
+    for name in ("chol128", "trisolve128"):
+        with open(os.path.join(_build.CSRC, name + ".cu")) as f:
+            barriers = f.read().count("__syncthreads();")
+        traced = phase_trace.traced_source(name)
+        assert barriers >= 3
+        assert traced.count("MARK();") == barriers + 1
+        assert traced.count("g_trace[blockIdx.x") == 1
+
+
 def test_checkpoints_wait_for_their_slice():
     opt = _tiny_gpr(seed=0, device="cpu").ELBO_gaussian().compile()
     with pytest.raises(NotImplementedError, match="item 17"):
