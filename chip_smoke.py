@@ -81,7 +81,10 @@ PROFILE_TRIES = 3          # device_ms: traces of one window before it gives up
 NEWTON_ATOL = {"student_t": 1e-4, "bernoulli_logit": 1e-3}
 K4_N = (40, 128)
 K5_SHAPES = ((16, 40), (256, 128))  # B = 256 is past the TPU kernel's VMEM cap
-WIDE_M = (128, 1024, 3968, 8192)    # 3968: blocked_cholesky's first panel at n = 4096
+# 3968: blocked_cholesky's first panel at n = 4096; K6's tile widths
+# (cuda_wide.tile_cols): 16 at 128 and 1024, 32 at 3968, 64 at 8192
+WIDE_M = (128, 1024, 3968, 8192)
+K3_EDGE = 33  # K3's bordered system: 34 rows, a full panel and a narrow one
 BLOCKED_N = (2048, 4096)
 # blocked vs torch.linalg, relative to the reference's largest entry:
 # float32 sums over up to n terms in another order
@@ -481,32 +484,65 @@ def wide_checks(torch, errs, times):
                 lambda: torch.linalg.solve_triangular(Tc, R, upper=upper))
             row["bound_ms"], row["bound_by"] = bound(*wide_cost(m))
             times[("K6", upper, m)] = row
-            print("K6 %s m=%d max_abs_err=%.3g kernel_ms=%.4f device_ms=%.4f plain_ms=%.4f "
-                  "library_ms=%.4f library_device_ms=%.4f bound_ms=%.3g (%s)"
-                  % (entry.__name__, m, err, row["ms"], row["device_ms"], row["plain_ms"],
+            print("K6 %s m=%d cols=%d max_abs_err=%.3g kernel_ms=%.4f device_ms=%.4f "
+                  "plain_ms=%.4f library_ms=%.4f library_device_ms=%.4f bound_ms=%.3g (%s)"
+                  % (entry.__name__, m, cuda_wide.tile_cols(m), err, row["ms"],
+                     row["device_ms"], row["plain_ms"],
                      row["library_ms"], row["library_device_ms"], row["bound_ms"],
                      row["bound_by"]))
+
+
+def near_tie_check(torch, Lk, y, var, tag, v, want):
+    """K3's largest error against the plain version over all but a tenth of
+    the models (at most one), and every mode as good an optimum as the
+    plain version's: psi at the kernel's mode at least psi at the plain
+    version's less 1e-5 (1 + |psi|), the ladder's tie tolerance. Student-t
+    modes are not determined to 1e-4 by float32 everywhere: where the
+    ladder meets a near-tie, rounding in another order takes another step
+    (the plain version against float64 misses 1e-4 on some models of these
+    batches, and the parent kernel missed it too)."""
+    from henbun_tpu_torch.ops import cuda_newton
+
+    def psi(vv):
+        ll = cuda_newton.lik_terms(tag, 3.0, y.double(), Lk.double() @ vv.double(),
+                                   var.double().reshape(-1, 1, 1))[0]
+        return ll.sum((1, 2)) - 0.5 * (vv.double() ** 2).sum((1, 2))
+
+    diff = (v - want).abs().amax((1, 2))
+    keep = diff.argsort()[: Lk.shape[0] - max(1, Lk.shape[0] // 10)]
+    psi_k, psi_p = psi(v), psi(want)
+    check(bool((psi_k >= psi_p - 1e-5 * (1 + psi_p.abs())).all()),
+          "K3: a mode short of the plain version's optimum")
+    print("K3 near-tie check: largest difference %.3g (model %d), psi short by at most %.3g "
+          "of 1 + |psi|" % (float(diff.max()), int(diff.argmax()),
+                            float(((psi_p - psi_k) / (1 + psi_p.abs())).max())))
+    return float(diff[keep].max())
 
 
 def newton_checks(torch, errs, times):
     """K3 against its plain version: both likelihoods at the Laplace
     fleet's shape and at n = m = 128, Bernoulli at the GPC fleet's shape,
-    the rectangular (inducing-point) shape, and one model's NaN target
-    isolated from the other 15. No
+    the rectangular (inducing-point) shape, a panel edge (n = m = 33,
+    held as near_tie_check says), and one model's NaN target isolated from
+    the other 15. No
     PyTorch call computes a Newton loop, so there is no library time."""
     from henbun_tpu_torch.ops import cuda_newton
 
     k3 = cuda_newton.newton_mode_vbatched
     shapes = [(tag, B, n, m) for B, n, m in ((FLEET, N, N), (FLEET, 128, 128))
               for tag in ("student_t", "bernoulli_logit")]
-    shapes += [("bernoulli_logit", FLEET, GPC_N, GPC_N), ("bernoulli_logit", 4, 96, 24)]
+    shapes += [("bernoulli_logit", FLEET, GPC_N, GPC_N), ("bernoulli_logit", 4, 96, 24),
+               ("student_t", FLEET, K3_EDGE, K3_EDGE)]
     for tag, B, n, m in shapes:
         Lk, y, var = newton_batch(torch, tag, B, n, m, seed=n + m, device="cuda")
         v = k3(Lk, y, var, tag, df=3.0)
         torch.cuda.synchronize()
         want = cuda_newton.newton_mode_plain(Lk, y, var, tag, df=3.0)
         check(bool(torch.isfinite(v).all()), "K3 %s B=%d n=%d m=%d: mode not finite" % (tag, B, n, m))
-        err = max_err(torch, v, want)
+        if n == K3_EDGE:
+            err = near_tie_check(torch, Lk, y, var, tag, v, want)
+        else:
+            err = max_err(torch, v, want)
         check(err <= NEWTON_ATOL[tag], "K3 %s B=%d n=%d m=%d: max error %g" % (tag, B, n, m, err))
         errs["K3"] = max(errs["K3"], err)
         row = {
@@ -1111,7 +1147,7 @@ def main():
     print("build: %s in %.1f s" % (", ".join(sorted(logs)), time.perf_counter() - t0))
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
-            if "registers" in line or "smem" in line:
+            if "registers" in line or "smem" in line or "spill" in line:
                 print("  %s: %s" % (name, line.strip()))
 
     errs, times = kernel_phase(torch, hb)

@@ -3,10 +3,12 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 by ``nvcc`` for Hopper (``sm_90a``) into
 ``build/henbun_tpu_torch/<name>-<hash>.so`` beside the package, keyed by a
-hash of the source and the flags, so an edit rebuilds it and an unchanged
-source is built once. The library is loaded with ``ctypes``: pointers and
-the stream go in as ``c_void_p``. Nothing here includes PyTorch's headers
-(one such file takes minutes to build; a plain C file seconds).
+hash of the source, every header in ``csrc/`` (``*.cuh``, which the
+sources include) and the flags, so an edit of either rebuilds it and an
+unchanged source is built once. The library is loaded with ``ctypes``:
+pointers and the stream go in as ``c_void_p``. Nothing here includes
+PyTorch's headers (one such file takes minutes to build; a plain C file
+seconds).
 
 Nothing is built when this module is imported: ``load(name)`` builds at
 first use, and ``build_all()`` builds every source at once, one ``nvcc``
@@ -57,11 +59,21 @@ def sources():
     return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
 
 
-def _target(name):
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return src, os.path.join(BUILD_DIR, "%s-%s.so" % (name, digest.hexdigest()[:16]))
+def headers(csrc=CSRC):
+    """The shared headers in csrc/ (``*.cuh``), sorted."""
+    return sorted(f for f in os.listdir(csrc) if f.endswith(".cuh"))
+
+
+def _target(name, csrc=CSRC, build_dir=BUILD_DIR):
+    """(source path, library path): the library is named by a hash of the
+    source, every header of csrc/ and the flags."""
+    src = os.path.join(csrc, name + ".cu")
+    digest = hashlib.sha256()
+    for path in [src] + [os.path.join(csrc, h) for h in headers(csrc)]:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read() + b"\0")
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return src, os.path.join(build_dir, "%s-%s.so" % (name, digest.hexdigest()[:16]))
 
 
 def _start(name):

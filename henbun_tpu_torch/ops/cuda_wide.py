@@ -8,9 +8,9 @@ Replaces the TPU kernel ``henbun_tpu/ops/pallas_wide.py``
 :func:`wide_lsolve128` solves L X = B reading only L's lower triangle,
 :func:`wide_usolve128` solves U X = B reading only U's upper triangle; m is
 a positive multiple of 128, at most 8192. On the card the kernel runs one
-block of 128 threads for each 128-column tile of B, one thread per column,
-with the triangle in shared memory; only m / 128 SMs have work, so the
-kernel runs well above its bound (see the source). As in the JAX package,
+block of 256 threads for each tile of :func:`tile_cols` columns of B, with
+the triangle and the tile in shared memory, a blocked substitution over
+32-row diagonal blocks (see the source). As in the JAX package,
 nothing dispatches to it: the blocked algorithms (``ops/blocked.py``) chunk
 their panels onto K2 instead, and K6 is reached by direct import.
 
@@ -28,9 +28,22 @@ from . import _build
 
 TILE = 128
 MAX_M = 8192
-# widesolve128_launch(T, B, X, m, upper, stream)
+COLS = (64, 32, 16)  # the kernel's tile widths, widest first
+GRID_TARGET = 120    # blocks that fill most of an H100's 132 SMs
+# widesolve128_launch(T, B, X, m, upper, cols, stream)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def tile_cols(m):
+    """Columns of B a block takes: the widest of 64 and 32 that still gives
+    GRID_TARGET blocks, else 16. A block's time is mostly the diagonal
+    chain, whatever its width, so narrow tiles put more SMs on the same
+    work (m = 128: 8 blocks; 3968: 124; 8192: 128)."""
+    for cols in COLS[:-1]:
+        if m // cols >= GRID_TARGET:
+            return cols
+    return COLS[-1]
 
 
 def wide_solve128_plain(T, B, upper):
@@ -72,11 +85,14 @@ def _solve(T, B, upper, entry):
         return wide_solve128_plain(T, B, upper)
     if T.device.type != "cuda":
         raise ValueError("%s runs on CUDA or CPU, not %s" % (entry.__name__, T.device))
+    # the kernel copies 16 bytes at a time
+    T, B = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (T, B))
     X = torch.empty_like(B)
+    m = B.shape[-1]
     fn = _build.load("widesolve128", "widesolve128_launch", _ARGTYPES)
     with torch.cuda.device(T.device):
         stream = torch.cuda.current_stream(T.device).cuda_stream
-        err = fn(T.data_ptr(), B.data_ptr(), X.data_ptr(), B.shape[-1], int(upper), stream)
+        err = fn(T.data_ptr(), B.data_ptr(), X.data_ptr(), m, int(upper), tile_cols(m), stream)
     if err != 0:
         raise RuntimeError("widesolve128 kernel launch failed: cudaError %d" % err)
     entry.launches += 1

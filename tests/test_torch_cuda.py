@@ -146,14 +146,16 @@ def test_batched_functions_on_the_card_match_the_cpu():
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
 
 
-def _newton_batch(tag, B, n, m, seed):
+def _newton_batch(tag, B, n, m, seed, cycle=None):
+    """K3 inputs; model b is scaled by 1 + 0.2 b, or by 1 + 0.2 (b % cycle)
+    (and its Student-t scale taken at b % cycle) for large batches."""
     rng = np.random.default_rng(seed)
     if n == m:
         Lk, y = [], []
         for b in range(B):
             X = np.sort(rng.uniform(0, 6, (n, 1)))
             K = np.exp(-0.5 * (X - X.T) ** 2 / 0.7**2) + 1e-4 * np.eye(n)
-            Lk.append(np.linalg.cholesky(K) * (1.0 + 0.2 * b))
+            Lk.append(np.linalg.cholesky(K) * (1.0 + 0.2 * (b if cycle is None else b % cycle)))
             yy = np.sin(X) + 0.1 * rng.standard_normal((n, 1))
             yy[::7] += 2.0
             y.append(yy)
@@ -163,7 +165,7 @@ def _newton_batch(tag, B, n, m, seed):
         y = rng.standard_normal((B, n, 1))
     if tag == "bernoulli_logit":
         y = (y > 0).astype(np.float64)
-    var = 0.15 + 0.05 * np.arange(B)[:, None]
+    var = 0.15 + 0.05 * (np.arange(B) if cycle is None else np.arange(B) % cycle)[:, None]
     return [a.astype(np.float32) for a in (Lk, y, var)]
 
 
@@ -193,6 +195,56 @@ def test_newton_kernel_isolates_a_nan_model():
     v = cuda_newton.newton_mode_vbatched(Lk, y, var, "student_t", df=3.0)
     assert (v[2] == 0).all()
     keep = [0, 1, 3, 4, 5]
+    assert torch.equal(v[keep], clean[keep])
+
+
+def _psi(Lk, y, var, v, tag):
+    """psi(v) = sum ll(y, Lk v) - |v|^2 / 2 of each model, in float64."""
+    Lk, y, var, v = (t.double() for t in (Lk, y, var, v))
+    ll = cuda_newton.lik_terms(tag, 3.0, y, Lk @ v, var.reshape(-1, 1, 1))[0]
+    return ll.sum((1, 2)) - 0.5 * (v * v).sum((1, 2))
+
+
+@pytest.mark.parametrize("tag", ["student_t", "bernoulli_logit"])
+@pytest.mark.parametrize("B,n,m", [(3, k, k) for k in (31, 32, 33, 64, 65, 127, 128)]
+                         + [(4, 96, 24), (4, 24, 96), (1, 40, 40), (133, 40, 40)])
+def test_newton_kernel_panel_edges_and_batches(tag, B, n, m):
+    """K3 where the factor's bordered system (m + 1 rows, padded to 4)
+    ends at and around a 32-column panel edge, rectangular Lk both ways, a
+    single model and more models than SMs. All but a tenth of the models
+    (at most one) are within the tolerance of
+    test_newton_kernel_matches_plain (1e-4 Student-t, 1e-3 Bernoulli) of
+    the plain version's mode, and every mode is as good an optimum: psi at
+    the kernel's mode at least psi at the plain version's less 1e-5
+    (1 + |psi|), the ladder's tie tolerance. Student-t modes are not
+    determined to 1e-4 by float32 everywhere: where the ladder meets a
+    near-tie, rounding in another order takes another step (the plain
+    version against float64 misses 1e-4 on some models of these batches,
+    and the parent kernel missed it too)."""
+    dev = _card()
+    Lk, y, var = (torch.tensor(a, device=dev)
+                  for a in _newton_batch(tag, B, n, m, seed=n + 2 * m, cycle=16))
+    v = cuda_newton.newton_mode_vbatched(Lk, y, var, tag, df=3.0)
+    assert v.shape == (B, m, 1) and torch.isfinite(v).all()
+    tol = 1e-4 if tag == "student_t" else 1e-3
+    want = cuda_newton.newton_mode_plain(Lk, y, var, tag, df=3.0)
+    missed = (v - want).abs().amax((1, 2)) > tol
+    assert int(missed.sum()) <= max(1, B // 10)
+    psi_k, psi_p = _psi(Lk, y, var, v, tag), _psi(Lk, y, var, want, tag)
+    assert (psi_k >= psi_p - 1e-5 * (1 + psi_p.abs())).all()
+
+
+def test_newton_kernel_isolates_a_nan_model_at_128():
+    """At n = m = 128 (four full panels and the border's narrow one) a NaN
+    target keeps its model at v = 0 and leaves the other modes bit-equal."""
+    dev = _card()
+    Lk, y, var = (torch.tensor(a, device=dev)
+                  for a in _newton_batch("student_t", 6, 128, 128, 3))
+    clean = cuda_newton.newton_mode_vbatched(Lk, y, var, "student_t", df=3.0)
+    y[4, 100] = float("nan")
+    v = cuda_newton.newton_mode_vbatched(Lk, y, var, "student_t", df=3.0)
+    assert (v[4] == 0).all()
+    keep = [0, 1, 2, 3, 5]
     assert torch.equal(v[keep], clean[keep])
 
 
@@ -272,11 +324,13 @@ def test_cholesky128_batched_matches_plain_and_isolates_nan(B, n):
                                equal_nan=True)
 
 
-@pytest.mark.parametrize("m", [128, 1024, 3968, 8192])
+@pytest.mark.parametrize("m", [128, 256, 1024, 3712, 3840, 3968, 7552, 7680, 8192])
 @pytest.mark.parametrize("upper", [False, True])
 def test_wide_solve_kernel_matches_plain(m, upper):
-    """K6 in both modes; NaN in the triangle it must not read never
-    reaches X. atol 1e-5 on O(1) solutions."""
+    """K6 in both modes at every tile width it selects (cuda_wide.tile_cols:
+    16 up to m = 3712, 32 from 3840 to 7552, 64 from 7680) and at the edges
+    between them; NaN in the triangle it must not read never reaches X.
+    atol 1e-5 on O(1) solutions."""
     dev = _card()
     L = _lower(1, 128, seed=m)[0]  # NaN above the diagonal
     T = torch.tensor(np.ascontiguousarray(L.T) if upper else L, device=dev)

@@ -107,16 +107,51 @@ def test_kernel_build_contract():
 
 def test_phase_trace_marks_the_start_and_every_barrier():
     """The traced copies that utils/phase_trace.py builds on the card: one
-    clock64 mark at the kernel's start and one after each __syncthreads."""
+    clock64 mark at each kernel's start and end and one after each
+    __syncthreads, for every kernel source."""
     from henbun_tpu_torch.utils import phase_trace
 
-    for name in ("chol128", "trisolve128"):
-        with open(os.path.join(_build.CSRC, name + ".cu")) as f:
-            barriers = f.read().count("__syncthreads();")
+    for name in ("chol128", "trisolve128", "newton128", "widesolve128"):
+        source = phase_trace.expanded_source(name)
+        assert '#include "' not in source  # every csrc header is written in place
+        barriers = source.count("__syncthreads();")
+        kernels = len(phase_trace._kernel_bodies(source))
         traced = phase_trace.traced_source(name)
-        assert barriers >= 3
-        assert traced.count("MARK();") == barriers + 1
+        assert barriers >= 3 and kernels >= 1
+        assert traced.count("MARK();") == barriers + 2 * kernels
         assert traced.count("g_trace[blockIdx.x") == 1
+        assert traced.count("g_mark = 0;") == kernels
+
+
+def test_kernel_build_key_covers_the_headers(tmp_path):
+    """A library's name hashes its source and every csrc header: editing a
+    header the sources include gives a new name, so no stale build is
+    reused."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\nint x;\n')
+    (tmp_path / "h.cuh").write_text("#pragma once\n")
+    first = _build._target("k", csrc=str(tmp_path), build_dir=str(tmp_path))[1]
+    assert first == _build._target("k", csrc=str(tmp_path), build_dir=str(tmp_path))[1]
+    (tmp_path / "h.cuh").write_text("#pragma once\nconstexpr int kEdited = 1;\n")
+    second = _build._target("k", csrc=str(tmp_path), build_dir=str(tmp_path))[1]
+    assert second != first and os.path.basename(second).startswith("k-")
+    assert _build.headers(str(tmp_path)) == ["h.cuh"]
+    assert _build.headers() == ["panel_chol.cuh"]
+
+
+def test_wide_solve_tile_width_divides_m_and_fills_the_grid():
+    """K6's tile width (ops/cuda_wide.tile_cols) divides every m the kernel
+    takes, and the grid never has fewer blocks than one a 128-column tile;
+    each of the three widths is chosen somewhere."""
+    from henbun_tpu_torch.ops import cuda_wide
+
+    widths = set()
+    for m in range(cuda_wide.TILE, cuda_wide.MAX_M + 1, cuda_wide.TILE):
+        cols = cuda_wide.tile_cols(m)
+        widths.add(cols)
+        assert cols in cuda_wide.COLS and m % cols == 0
+        assert m // cols >= m // cuda_wide.TILE
+    assert widths == set(cuda_wide.COLS)
+    assert [cuda_wide.tile_cols(m) for m in (128, 256, 3968, 8192)] == [16, 16, 32, 64]
 
 
 def test_checkpoints_wait_for_their_slice():
