@@ -43,7 +43,25 @@ Run from the root of a checkout. Phases, each of which fails the run:
    evidence step with safe_cholesky's Murray backward against
    torch.linalg.cholesky's native gradient.
 
-The kernel phase also holds K4 and K5 (cholesky128, cholesky128_batched:
+10. amortized path (BASELINE config 3's width): AmortizedRegression
+   (d_z = 4, hidden = 64) on 1e6 synthetic rows kept on the card, Adam
+   0.003, minibatches of 1,024: 2,000 steps with diagonal locals, 500 with
+   fullrank_packed ones; the ELBO card vs CPU at the same weights, rows
+   and noise; a traced window each;
+11. SVGP path (benchmarks/svgp_bench.py's width: n = 1e6, m = 128,
+   minibatch 1,024, block mode): 500 steps each of the MC ELBO with Adam,
+   the analytic ELBO with natural_gradient(1.0) and the classification
+   quadrature ELBO with natural_gradient(0.1), K1 and K2 launches a step
+   counted; for the natural-gradient pairings 20 steps with the kernels
+   and 20 without, and one update on the card and on the CPU, each held
+   to float64 (natgrad_checks);
+12. natgrad fleet: 16 GPRs on ELBO_student_quadrature with
+   natural_gradient(0.2) (n = 40, the Laplace fleet's data), 200 steps,
+   launches counted, 20 steps kernels on vs off.
+
+The kernel phase also checks K1 and K2 at the natural gradient's shapes
+(B = 1 and 3 at n = 128, B = 48 at n = 40; K2 as L X = I), and holds K4
+and K5 (cholesky128, cholesky128_batched:
 K1's kernel through their own entries) and K6 (the wide solves) against
 their plain versions; no training path launches them.
 
@@ -94,6 +112,25 @@ MARGINAL_STEPS = 50
 MARGINAL_PROFILE_STEPS = 10
 MARGINAL_PREDICT = 1000
 BACKWARD_STEPS = 10        # evidence steps timed per turn, Murray vs native
+# the natural gradient's K1 / K2 shapes: SVGP q(u) at m = 128 (B = 1, 3
+# with the stacked retry ladder) and the natgrad GPR fleet (16 x 40, 48)
+NATGRAD_SHAPES = ((1, 128), (3, 128), (3 * FLEET, N))
+# amortized SVI at BASELINE config 3's width (examples/amortized_svi.py)
+AMORT_N = 1_000_000
+AMORT_STEPS = {"diagonal": 2000, "fullrank_packed": 500}
+MINIBATCH = 1024
+SLICE_CHUNK = 500          # steps between host syncs on the new paths
+SLICE_PROFILE_STEPS = 20
+# SVGP at benchmarks/svgp_bench.py's width
+SVGP_N = 1_000_000
+SVGP_M = 128
+SVGP_STEPS = 500
+NATGRAD_FLEET_STEPS = 200
+# a float32 path's deviation from float64, kernels against library, at
+# most this factor (measured at m = 128: objective 1.44x and 1.56x the
+# library path's in 20 steps, one update 0.50x and 1.07x the CPU's)
+NATGRAD_F32_FACTOR = 2.0
+U32 = 2.0 ** -24           # float32's unit roundoff
 
 
 def fail(msg):
@@ -358,10 +395,60 @@ def kernel_phase(torch, hb):
                   "device_ms=%.4f plain_ms=%.4f library_ms=%.4f library_device_ms=%.4f"
                   % (B, n, m, transpose, err, row["ms"], row["device_ms"], row["plain_ms"],
                      row["library_ms"], row["library_device_ms"]))
+    natgrad_kernel_checks(torch, errs, times)
     newton_checks(torch, errs, times)
     small_chol_checks(torch, errs, times)
     wide_checks(torch, errs, times)
     return errs, times
+
+
+def natgrad_kernel_checks(torch, errs, times):
+    """K1 and K2 at the natural gradient's shapes (NATGRAD_SHAPES): K1 on
+    SPD batches, K2 as L X = I (the inverses natgrad takes, no
+    transpose), each against its plain version, with cholesky_ex's and
+    solve_triangular's device times beside them."""
+    from henbun_tpu_torch.ops import cuda_chol, cuda_solve
+
+    for B, n in NATGRAD_SHAPES:
+        A = spd(torch, B, n, seed=B * 7 + n, device="cuda")
+        L = cuda_chol.cholesky128_vbatched(A)
+        torch.cuda.synchronize()
+        err = max_err(torch, L, cuda_chol.cholesky128_plain(A))
+        check(err <= KERNEL_ATOL, "K1 natgrad B=%d n=%d: max error %g" % (B, n, err))
+        errs["K1"] = max(errs["K1"], err)
+        row = {"ms": time_ms(torch, lambda: cuda_chol.cholesky128_vbatched(A)),
+               "plain_ms": time_ms(torch, lambda: cuda_chol.cholesky128_plain(A), iters=3,
+                                   warmup=1),
+               "library_ms": time_ms(torch, lambda: torch.linalg.cholesky_ex(A))}
+        row["device_ms"], row["library_device_ms"] = device_ms(
+            torch, lambda: cuda_chol.cholesky128_vbatched(A), "chol128",
+            lambda: torch.linalg.cholesky_ex(A))
+        row["bound_ms"], row["bound_by"] = bound(*chol_cost(B, n))
+        times[("K1", B, n)] = row
+        Lf = lower(torch, B, n, seed=B * 11 + n, device="cuda")
+        eye = torch.eye(n, device="cuda").expand(B, n, n).contiguous()
+        X = cuda_solve.tri_solve128_vbatched(Lf, eye, False)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(X).all()), "K2 natgrad read the NaN triangle")
+        err2 = max_err(torch, X, cuda_solve.tri_solve128_plain(Lf, eye, False))
+        check(err2 <= KERNEL_ATOL, "K2 natgrad B=%d n=%d: max error %g" % (B, n, err2))
+        errs["K2"] = max(errs["K2"], err2)
+        Lt = torch.tril(torch.nan_to_num(Lf))
+        row2 = {"ms": time_ms(torch, lambda: cuda_solve.tri_solve128_vbatched(Lf, eye, False)),
+                "plain_ms": time_ms(torch, lambda: cuda_solve.tri_solve128_plain(Lf, eye, False),
+                                    iters=3, warmup=1),
+                "library_ms": time_ms(
+                    torch, lambda: torch.linalg.solve_triangular(Lt, eye, upper=False))}
+        row2["device_ms"], row2["library_device_ms"] = device_ms(
+            torch, lambda: cuda_solve.tri_solve128_vbatched(Lf, eye, False), "trisolve128",
+            lambda: torch.linalg.solve_triangular(Lt, eye, upper=False))
+        row2["bound_ms"], row2["bound_by"] = bound(*solve_cost(B, n, n))
+        times[("K2", B, n, n, False, "eye")] = row2
+        for name, r, e in (("K1 cholesky", row, err), ("K2 tri_solve L X = I", row2, err2)):
+            print("natgrad shape %s B=%d n=%d max_abs_err=%.3g kernel_ms=%.4f device_ms=%.4f "
+                  "plain_ms=%.4f library_ms=%.4f library_device_ms=%.4f bound_ms=%.3g (%s)"
+                  % (name, B, n, e, r["ms"], r["device_ms"], r["plain_ms"], r["library_ms"],
+                     r["library_device_ms"], r["bound_ms"], r["bound_by"]))
 
 
 def late_pivot_checks(torch, errs, key, entry, B, n=128, k=100):
@@ -836,18 +923,18 @@ def profile_phase(torch, hb, kind="gpr", steps=PROFILE_STEPS):
     return profile_window(torch, hb, "%s fleet" % kind, make_fleet(hb, "cuda", kind), steps)
 
 
-def profile_window(torch, hb, label, opt, steps):
+def profile_window(torch, hb, label, opt, steps, **optimize_kw):
     """A traced window of `steps` optimization steps after as many to warm
     up: device time by kernel and the share of the window the card was
     busy (torch.profiler, CPU and CUDA). Returns the busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     with hb.settings.temp_settings(settings_with(hb, scan_chunk=steps)):
-        opt.optimize(maxiter=steps)  # warm
+        opt.optimize(maxiter=steps, **optimize_kw)  # warm
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            opt.optimize(maxiter=steps)
+            opt.optimize(maxiter=steps, **optimize_kw)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
     events = device_events(torch, prof)
@@ -1110,6 +1197,428 @@ def backward_phase(torch, hb, X, Y, fitted):
     return float(np.mean(ms[False])), float(np.mean(ms[True]))
 
 
+def run_path(torch, hb, opt, steps, **optimize_kw):
+    """`steps` optimization steps in chunks of SLICE_CHUNK with every
+    kernel count set to 0 just before and read just after. Returns
+    (objective history, seconds, launches)."""
+    counters = all_counters()
+    with hb.settings.temp_settings(settings_with(hb, scan_chunk=SLICE_CHUNK)):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.optimize(maxiter=steps, **optimize_kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+    hist = np.concatenate(opt.history)[-steps:]
+    return hist, seconds, launches
+
+
+def check_rises(hist, label, window):
+    """Finite, and the mean of the last `window` steps (at most half of
+    them) above the first's."""
+    check(np.isfinite(hist).all(), "%s: objective not finite" % label)
+    window = min(window, len(hist) // 2)
+    first, last = float(np.mean(hist[:window])), float(np.mean(hist[-window:]))
+    check(last > first, "%s: objective did not rise (%g -> %g)" % (label, first, last))
+    return first, last
+
+
+def amortized_phase(torch, hb):
+    """Amortized SVI at BASELINE config 3's width: AmortizedRegression
+    (d_z = 4, hidden = 64) on make_synthetic_regression(n = 1e6, d_x = 8),
+    the data whole on the card, Adam 0.003, minibatches of 1,024 rows;
+    2,000 steps with diagonal locals and 500 with fullrank_packed ones.
+    The ELBO must stay finite and its mean over the last 100 steps (per
+    data point) exceed the first 100's; the objective on the card must
+    match the CPU's (rtol 1e-4) at the same weights, rows and noise. No
+    hand kernel runs on this path (none does in the reference)."""
+    X, Y = hb.models.make_synthetic_regression(n=AMORT_N, d_x=8, seed=0)
+    out = {}
+    for q_local, steps in AMORT_STEPS.items():
+        hb.set_seed(0)
+        model = hb.models.AmortizedRegression(seed=0, X=X, Y=Y, d_z=4, hidden=64,
+                                              q_local=q_local)
+        opt = model.ELBO().compile(hb.adam(0.003))
+        rng = np.random.default_rng(1)
+        rows = rng.choice(AMORT_N, MINIBATCH, replace=False)
+        u = torch.tensor(rng.standard_normal((MINIBATCH, 4)).astype(np.float32))
+        elbo = hb.models.AmortizedRegression.ELBO.__wrapped__
+        v_card = float(model.run(elbo, minibatch_index=rows, noise={"z": u.to(model.device)}))
+        cpu = hb.models.AmortizedRegression(seed=0, X=X, Y=Y, d_z=4, hidden=64,
+                                            q_local=q_local, device="cpu")
+        cpu.set_param_dict({k: v.detach().cpu() for k, v in model.param_dict().items()})
+        v_cpu = float(cpu.run(elbo, minibatch_index=rows, noise={"z": u}))
+        rel = abs(v_card - v_cpu) / abs(v_cpu)
+        check(rel <= 1e-4, "amortized %s ELBO card %g vs CPU %g" % (q_local, v_card, v_cpu))
+        hist, seconds, launches = run_path(torch, hb, opt, steps, minibatch_size=MINIBATCH)
+        first, last = check_rises(hist / AMORT_N, "amortized " + q_local, 100)
+        rate = steps / seconds
+        print("amortized path: q_local=%s n=%d d_z=4 hidden=64 minibatch=%d steps=%d "
+              "seconds=%.3f steps_per_s=%.1f examples_per_s=%.0f elbo_per_point first100=%.4f "
+              "last100=%.4f launches %s; card vs CPU ELBO %.6f / %.6f rel_diff=%.3g"
+              % (q_local, AMORT_N, MINIBATCH, steps, seconds, rate, rate * MINIBATCH, first,
+                 last, " ".join("%s=%d" % kv for kv in sorted(launches.items())), v_card,
+                 v_cpu, rel))
+        busy = profile_window(torch, hb, "amortized %s" % q_local, opt, SLICE_PROFILE_STEPS,
+                              minibatch_size=MINIBATCH)
+        out[q_local] = {"steps_per_s": rate, "busy": busy}
+    return out
+
+
+def svgp_data(n):
+    """benchmarks/svgp_bench.py's data: U[0, 6] inputs, sin(x) + 0.3 N(0, 1)
+    targets, labels from sigmoid(3 sin(1.5 x - 3)), numpy seed 0."""
+    rng = np.random.default_rng(0)
+    X = rng.uniform(0, 6, size=(n, 1)).astype(np.float32)
+    Y = (np.sin(X) + rng.normal(size=X.shape) * 0.3).astype(np.float32)
+    p_true = 1.0 / (1.0 + np.exp(-3.0 * np.sin(X * 1.5 - 3.0)))
+    Yc = (rng.uniform(size=X.shape) < p_true).astype(np.float32)
+    return X, Y, Yc
+
+
+# name -> (family, objective, analytic_kl, optimizer factory of the model);
+# the pairings the reference's docs record as training (docs/PERF.md:209-216)
+SVGP_PAIRINGS = {
+    "reg ELBO + adam(0.02)": ("reg", "ELBO", False, lambda hb, m: hb.adam(0.02)),
+    "reg ELBO_analytic + natgrad(1.0)": (
+        "reg", "ELBO_analytic", True,
+        lambda hb, m: hb.optimizers.natural_gradient(m, gamma=1.0, rest=hb.adam(0.005))),
+    "cls ELBO_quadrature + natgrad(0.1)": (
+        "cls", "ELBO_quadrature", True,
+        lambda hb, m: hb.optimizers.natural_gradient(m, gamma=0.1, rest=hb.adam(0.01))),
+}
+
+
+def svgp_model(hb, data, family, analytic_kl, device=None):
+    X, Y, Yc = data
+    hb.set_seed(0)
+    if family == "reg":
+        return hb.models.SVGPRegression(seed=0, X=X, Y=Y, num_inducing=SVGP_M,
+                                        analytic_kl=analytic_kl, device=device)
+    return hb.models.SVGPClassification(seed=0, X=X, Y=Yc, num_inducing=SVGP_M, device=device)
+
+
+def svgp_phase(torch, hb):
+    """The SVGP families at svgp_bench.py's width (n = 1e6, m = 128,
+    minibatch 1,024, block mode), 500 steps of each pairing in
+    SVGP_PAIRINGS: objective finite and rising, K1 and K2 launches a step
+    counted; then natgrad_checks on the two natural-gradient pairings."""
+    data = svgp_data(SVGP_N)
+    out = {}
+    for name, (family, method, analytic_kl, make_opt) in SVGP_PAIRINGS.items():
+        model = svgp_model(hb, data, family, analytic_kl)
+        opt = getattr(model, method)().compile(make_opt(hb, model))
+        kw = dict(minibatch_size=MINIBATCH, minibatch_mode="block")
+        hist, seconds, launches = run_path(torch, hb, opt, SVGP_STEPS, **kw)
+        first, last = check_rises(hist / SVGP_N, "svgp " + name, 50)
+        natgrad = "natgrad" in name
+        if natgrad:
+            check(launches["K1"] >= 2 * SVGP_STEPS and launches["K2"] >= 2 * SVGP_STEPS,
+                  "svgp %s: K1/K2 launched %r in %d natgrad steps" % (name, launches, SVGP_STEPS))
+        rate = SVGP_STEPS / seconds
+        print("svgp path: %s n=%d m=%d minibatch=%d block steps=%d seconds=%.3f steps_per_s=%.1f "
+              "examples_per_s=%.0f objective_per_point first50=%.4f last50=%.4f launches %s "
+              "per_step K1=%.3f K2=%.3f"
+              % (name, SVGP_N, SVGP_M, MINIBATCH, SVGP_STEPS, seconds, rate, rate * MINIBATCH,
+                 first, last, " ".join("%s=%d" % kv for kv in sorted(launches.items())),
+                 launches["K1"] / SVGP_STEPS, launches["K2"] / SVGP_STEPS))
+        busy = profile_window(torch, hb, "svgp " + name, opt, SLICE_PROFILE_STEPS, **kw)
+        out[name] = {"steps_per_s": rate, "busy": busy, "launches": launches}
+        if natgrad:
+            natgrad_checks(torch, hb, data, name)
+    return out
+
+
+def natgrad_run(torch, hb, data, name, use_kernels=True, dtype=None, steps=CHECK_STEPS):
+    """A fresh model of an SVGP pairing, `steps` steps from the same weights
+    and rows; returns (history, model, optimizer)."""
+    family, method, analytic_kl, make_opt = SVGP_PAIRINGS[name]
+    cfg = settings_with(hb, use_kernels=use_kernels)
+    if dtype is not None:
+        cfg.dtypes.float_type = dtype
+    with hb.settings.temp_settings(cfg):
+        m = svgp_model(hb, data, family, analytic_kl)
+        o = getattr(m, method)().compile(make_opt(hb, m))
+        if not steps:
+            return None, None, m, o
+        hist, _, launches = run_path(torch, hb, o, steps, minibatch_size=MINIBATCH,
+                                     minibatch_mode="block")
+    return hist.astype(np.float64), launches, m, o
+
+
+def natgrad_checks(torch, hb, data, name):
+    """For a natural-gradient SVGP pairing, against float64 as the arbiter:
+    the natural step at m = 128 is a solve with Sigma^-1, whose condition
+    number at this likelihood scale (n / B = 977) puts float32's error far
+    above 1e-4 on any float32 path (measured: two float32 paths 3e-3 apart
+    in 20 steps, each as far from float64). So CHECK_STEPS steps with the
+    kernels and as many with use_kernels off (no kernel may launch) are
+    both held to a float64 run from the same weights and rows: the
+    kernels' largest deviation at most NATGRAD_F32_FACTOR times the
+    library path's, plus 1e-4 of the objective's scale. Then the first
+    update from the initial weights and the same gradients on the card
+    (K1, K2), on the CPU in float32 (plain versions) and on the CPU in
+    float64: each leaf's card error against float64 at most
+    NATGRAD_F32_FACTOR times the CPU float32 error, plus 1e-4 of the
+    leaf's largest entry; and the operands of that update's K1 and K2
+    calls held to the plain versions (natgrad_operand_checks)."""
+    from henbun_tpu_torch import optimizers
+
+    on, _, _, _ = natgrad_run(torch, hb, data, name)
+    off, launches, _, _ = natgrad_run(torch, hb, data, name, use_kernels=False)
+    check(sum(launches.values()) == 0, "svgp %s: use_kernels off launched %r" % (name, launches))
+    f64, _, _, _ = natgrad_run(torch, hb, data, name, use_kernels=False, dtype=torch.float64)
+    scale = np.abs(f64).max()
+    dev_on, dev_off = np.abs(on - f64).max() / scale, np.abs(off - f64).max() / scale
+    check(np.isfinite(on).all() and dev_on <= NATGRAD_F32_FACTOR * dev_off + 1e-4,
+          "svgp %s: the kernels' objective deviates %g of its scale from float64, the "
+          "library's %g" % (name, dev_on, dev_off))
+
+    _, _, model, opt = natgrad_run(torch, hb, data, name, steps=0)
+    rows = torch.arange(MINIBATCH, device=model.device)
+    val, _ = opt._evaluate_core_aux(opt._trainable, opt._frozen,
+                                    opt._take_rows(opt._data_args(), rows),
+                                    model.generator, None)
+    (-val).backward()
+    ng = opt.torch_optimizer
+    steps = {}
+    for key, dtype in (("cpu32", torch.float32), ("cpu64", torch.float64)):
+        params = {k: v.detach().cpu().to(dtype).requires_grad_(True)
+                  for k, v in opt._trainable.items()}
+        for k, v in params.items():
+            v.grad = opt._trainable[k].grad.detach().cpu().to(dtype)
+        optimizers.NaturalGradient(model, params, ng.gamma, lambda p: None, ng.adaptive).step()
+        steps[key] = params
+    saved_rest, ng.rest = ng.rest, None  # the pairs only: Adam is not under test
+    chol_in, solve_in = captured_operands(ng.step)
+    ng.rest = saved_rest
+    natgrad_operand_checks(torch, name, chol_in, solve_in)
+    errs = []
+    for k in (k for p in ng.pairs for k in p[:2]):
+        want = steps["cpu64"][k].detach()
+        leaf = float(want.abs().max())
+        e_card = float((opt._trainable[k].detach().cpu().double() - want).abs().max()) / leaf
+        e_cpu = float((steps["cpu32"][k].detach().double() - want).abs().max()) / leaf
+        check(e_card <= NATGRAD_F32_FACTOR * e_cpu + 1e-4,
+              "svgp %s natgrad update: %s card error %g of its scale against float64, the CPU's "
+              "float32 %g" % (name, k, e_card, e_cpu))
+        errs.append("%s card=%.3g cpu32=%.3g card-cpu32=%.3g" % (
+            k, e_card, e_cpu,
+            float((opt._trainable[k].detach().cpu() - steps["cpu32"][k].detach()).abs().max())
+            / leaf))
+    print("natgrad check: %s %d steps, objective's largest deviation from float64 / scale: "
+          "kernels %.3g, use_kernels=False %.3g (kernels vs off %.3g); one update against "
+          "float64, error / leaf scale: %s"
+          % (name, CHECK_STEPS, dev_on, dev_off, np.abs(on - off).max() / scale,
+             "; ".join(errs)))
+
+
+def captured_operands(step):
+    """Run `step()` with linalg's Cholesky and triangular-solve dispatch
+    recording a copy of each operand; returns ([A], [(L, R, transpose)])."""
+    from henbun_tpu_torch.ops import linalg
+
+    chol, solve = linalg._cholesky_dispatch, linalg._tri_solve_dispatch
+    chol_in, solve_in = [], []
+
+    def rec_chol(A):
+        chol_in.append(A.detach().clone())
+        return chol(A)
+
+    def rec_solve(L, R, transpose):
+        solve_in.append((L.detach().clone(), R.detach().clone(), transpose))
+        return solve(L, R, transpose)
+
+    linalg._cholesky_dispatch, linalg._tri_solve_dispatch = rec_chol, rec_solve
+    try:
+        step()
+    finally:
+        linalg._cholesky_dispatch, linalg._tri_solve_dispatch = chol, solve
+    return chol_in, solve_in
+
+
+def gamma_n(k):
+    """Higham's gamma_k = k u / (1 - k u) for float32."""
+    return k * U32 / (1 - k * U32)
+
+
+def ratio_to(torch, err, scale):
+    """Largest err / scale per matrix, inf where scale is 0 and err is not."""
+    r = torch.where(scale > 0, err / scale.clamp_min(1e-300),
+                    torch.where(err > 0, float("inf"), 0.0))
+    return r.flatten(-2).amax(-1)
+
+
+def same_failures(torch, got, want, what):
+    fg = torch.isfinite(got).flatten(-2).all(-1)
+    fw = torch.isfinite(want).flatten(-2).all(-1)
+    check(torch.equal(fg, fw), "%s: the kernel fails on matrices %s, the plain version on %s"
+          % (what, fg.logical_not().nonzero().flatten().tolist(),
+             fw.logical_not().nonzero().flatten().tolist()))
+    return fw
+
+
+def chol_operand_check(torch, A, what):
+    """K1 against its plain version on the operand A [B, n, n] of a real
+    natural step (ill-conditioned: the posterior precision at n / B = 977).
+    Both must fail on the same matrices. On the others, each factor must
+    meet the backward-error bound of any float32 Cholesky (Higham, Thm
+    10.3): |tril(A - L L^T)| <= gamma_{n+1} |L| |L|^T elementwise, which
+    no condition number enters. The two factors may then differ by as much
+    as A's conditioning lets two such backward errors move the factor, to
+    first order (Sun 1991): ||L_k - L_p||_F / ||L||_2 <= kappa_2(A)
+    (eta_k + eta_p), eta = ||A - L L^T||_F / ||A||_2 measured, kappa_2
+    measured in float64 on the same A."""
+    from henbun_tpu_torch.ops import cuda_chol
+
+    n = A.shape[-1]
+    Lk = cuda_chol.cholesky128_vbatched(A)
+    Lp = cuda_chol.cholesky128_plain(A)
+    torch.cuda.synchronize()
+    ok = same_failures(torch, Lk, Lp, what)
+    if not bool(ok.any()):
+        return {"matrices": 0, "failed": int((~ok).sum())}
+    A64 = torch.tril(A[ok].double())
+    A64 = A64 + torch.tril(A64, -1).mT
+    norm_a = torch.linalg.matrix_norm(A64, ord=2)
+    back, eta = [], []
+    for L in (Lk[ok].double(), Lp[ok].double()):
+        res = torch.tril(A64 - L @ L.mT)
+        back.append(ratio_to(torch, res.abs(), torch.tril(L.abs() @ L.abs().mT)))
+        eta.append(torch.linalg.matrix_norm(res + torch.tril(res, -1).mT) / norm_a)
+    kappa = torch.linalg.cond(A64)
+    L64 = torch.linalg.cholesky(A64)
+    diff = (torch.linalg.matrix_norm(Lk[ok].double() - Lp[ok].double())
+            / torch.linalg.matrix_norm(L64, ord=2))
+    tol = kappa * (eta[0] + eta[1])
+    g = gamma_n(n + 1)
+    check(float(back[0].max()) <= g and float(back[1].max()) <= g,
+          "%s: backward error / (|L||L^T|) kernel %g, plain %g, bound gamma_%d = %g"
+          % (what, float(back[0].max()), float(back[1].max()), n + 1, g))
+    check(bool((diff <= tol).all()),
+          "%s: ||L_k - L_p||_F / ||L||_2 = %s above kappa_2 (eta_k + eta_p) = %s"
+          % (what, diff.tolist(), tol.tolist()))
+    return {"matrices": int(ok.sum()), "failed": int((~ok).sum()),
+            "kappa": float(kappa.max()), "back_k": float(back[0].max()) / g,
+            "back_p": float(back[1].max()) / g, "diff": float(diff.max()),
+            "tol": float(tol[diff.argmax()]),
+            "vs64": float((torch.linalg.matrix_norm(Lk[ok].double() - L64)
+                           / torch.linalg.matrix_norm(L64, ord=2)).max())}
+
+
+def solve_operand_check(torch, L, R, what):
+    """K2 against its plain version on the operands of L X = R of a real
+    natural step. Both must fail on the same matrices. On the others, each
+    solution must meet the backward-error bound of any float32 substitution
+    (Higham, Thm 8.5): |R - tril(L) X| <= gamma_n |tril(L)| |X|
+    elementwise, no condition number in it. The two may then differ, to
+    first order, by 2 gamma_n cond(L, X) of ||X||_inf, with Skeel's
+    condition number cond(L, X) = || |L^-1| |L| |X| ||_inf / ||X||_inf
+    measured in float64 on the same L and R."""
+    from henbun_tpu_torch.ops import cuda_solve
+
+    n = L.shape[-1]
+    Xk = cuda_solve.tri_solve128_vbatched(L, R, False)
+    Xp = cuda_solve.tri_solve128_plain(L, R, False)
+    torch.cuda.synchronize()
+    ok = same_failures(torch, Xk, Xp, what)
+    if not bool(ok.any()):
+        return {"matrices": 0, "failed": int((~ok).sum())}
+    Lt, R64 = torch.tril(L[ok].double()), R[ok].double()
+    g = gamma_n(n)
+    back = [ratio_to(torch, (R64 - Lt @ X).abs(), Lt.abs() @ X.abs())
+            for X in (Xk[ok].double(), Xp[ok].double())]
+    X64 = torch.linalg.solve_triangular(Lt, R64, upper=False)
+    eye = torch.eye(n, dtype=Lt.dtype, device=Lt.device).expand(Lt.shape)
+    Linv = torch.linalg.solve_triangular(Lt, eye, upper=False)
+    norm_x = torch.linalg.matrix_norm(X64, ord=float("inf"))
+    skeel = torch.linalg.matrix_norm(Linv.abs() @ Lt.abs() @ X64.abs(), ord=float("inf")) / norm_x
+    diff = torch.linalg.matrix_norm(Xk[ok].double() - Xp[ok].double(), ord=float("inf")) / norm_x
+    tol = 2 * g * skeel
+    check(float(back[0].max()) <= g and float(back[1].max()) <= g,
+          "%s: backward error / (|L||X|) kernel %g, plain %g, bound gamma_%d = %g"
+          % (what, float(back[0].max()), float(back[1].max()), n, g))
+    check(bool((diff <= tol).all()),
+          "%s: ||X_k - X_p||_inf / ||X||_inf = %s above 2 gamma_n cond(L, X) = %s"
+          % (what, diff.tolist(), tol.tolist()))
+    return {"matrices": int(ok.sum()), "failed": int((~ok).sum()),
+            "kappa": float(torch.linalg.cond(Lt).max()), "skeel": float(skeel.max()),
+            "back_k": float(back[0].max()) / g, "back_p": float(back[1].max()) / g,
+            "diff": float(diff.max()), "tol": float(tol[diff.argmax()]),
+            "vs64": float((torch.linalg.matrix_norm(Xk[ok].double() - X64, ord=float("inf"))
+                           / norm_x).max())}
+
+
+def natgrad_operand_checks(torch, name, chol_in, solve_in):
+    """K1 and K2 on the operands one natural step of an SVGP pairing gave
+    its two factorizations (Pn + eps I and Sigma_new, [3, m, m] with the
+    ladder stacked) and its two inverses (L X = I on the q_sqrt factor and
+    on Pn's), each against its plain version (chol_operand_check,
+    solve_operand_check)."""
+    check(len(chol_in) == 2 and len(solve_in) == 2,
+          "svgp %s: a natural step made %d factorizations and %d solves, not 2 and 2"
+          % (name, len(chol_in), len(solve_in)))
+    rows = []
+    for i, A in enumerate(chol_in):
+        r = chol_operand_check(torch, A, "svgp %s K1 operand %d" % (name, i))
+        rows.append(("K1", i, tuple(A.shape), r))
+    for i, (L, R, transpose) in enumerate(solve_in):
+        check(not transpose, "svgp %s: natgrad solve %d transposed" % (name, i))
+        r = solve_operand_check(torch, L, R, "svgp %s K2 operand %d" % (name, i))
+        rows.append(("K2", i, tuple(L.shape), r))
+    for k, i, shape, r in rows:
+        print("natgrad operands: %s %s %d shape=%s %s" % (
+            name, k, i, "x".join(map(str, shape)),
+            " ".join("%s=%.4g" % kv for kv in r.items())))
+
+
+def natgrad_fleet(hb, device=None):
+    models = []
+    hb.set_seed(0)
+    for i in range(FLEET):
+        X, Y = robust_toy(N, seed=i)
+        models.append(hb.models.GPR(seed=i, X=X, Y=Y, analytic_kl=True, device=device))
+    return hb.BatchedOptimizer(models, "ELBO_student_quadrature").compile(
+        hb.optimizers.natural_gradient(models[0], gamma=0.2, rest=hb.adam(0.02)))
+
+
+def natgrad_fleet_phase(torch, hb):
+    """16 GPRs (analytic_kl) on ELBO_student_quadrature with
+    natural_gradient(0.2, rest=adam(0.02)) (examples/gaussian_process.py,
+    batched) on the Laplace fleet's robust data, n = 40: NATGRAD_FLEET_STEPS
+    steps with the counts read, the objective finite and rising; then
+    CHECK_STEPS steps with the kernels against as many without (1e-4 of the
+    objective's scale)."""
+    opt = natgrad_fleet(hb)
+    hist, seconds, launches = run_path(torch, hb, opt, NATGRAD_FLEET_STEPS)
+    first, last = check_rises(hist, "natgrad fleet", 20)
+    check(launches["K1"] >= 3 * NATGRAD_FLEET_STEPS and launches["K2"] >= 4 * NATGRAD_FLEET_STEPS,
+          "natgrad fleet: launches %r in %d steps" % (launches, NATGRAD_FLEET_STEPS))
+    runs = {}
+    for use_kernels in (True, False):
+        o = natgrad_fleet(hb)
+        with hb.settings.temp_settings(settings_with(hb, use_kernels=use_kernels)):
+            runs[use_kernels], _, ln = run_path(torch, hb, o, CHECK_STEPS)
+        if not use_kernels:
+            check(sum(ln.values()) == 0, "natgrad fleet: use_kernels off launched %r" % ln)
+    diff = np.abs(runs[True] - runs[False])
+    rel = float(diff.max() / np.abs(runs[False]).max())
+    check(rel <= 1e-4, "natgrad fleet kernels vs use_kernels=False: %g of the scale" % rel)
+    rate = NATGRAD_FLEET_STEPS / seconds
+    print("natgrad fleet: fleet=%d n=%d ELBO_student_quadrature natgrad(0.2)+adam(0.02) "
+          "steps=%d seconds=%.3f steps_per_s=%.1f objective first20=%.3f last20=%.3f launches "
+          "%s per_step K1=%.3f K2=%.3f; %d steps kernels vs use_kernels=False "
+          "max_diff/scale=%.3g"
+          % (FLEET, N, NATGRAD_FLEET_STEPS, seconds, rate, first, last,
+             " ".join("%s=%d" % kv for kv in sorted(launches.items())),
+             launches["K1"] / NATGRAD_FLEET_STEPS, launches["K2"] / NATGRAD_FLEET_STEPS,
+             CHECK_STEPS, rel))
+    busy = profile_window(torch, hb, "natgrad fleet", opt, SLICE_PROFILE_STEPS)
+    return {"steps_per_s": rate, "busy": busy, "launches": launches}
+
+
 def all_counters():
     from henbun_tpu_torch.ops import cuda_chol, cuda_wide
 
@@ -1163,6 +1672,15 @@ def main():
     profile_phase(torch, hb, "laplace", LAPLACE_PROFILE_STEPS)
     single_phase(torch, hb)
     t0 = time.perf_counter()
+    amortized = amortized_phase(torch, hb)
+    print("amortized phase: %.1f s" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    svgp = svgp_phase(torch, hb)
+    print("svgp phase: %.1f s" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    ng_fleet = natgrad_fleet_phase(torch, hb)
+    print("natgrad fleet phase: %.1f s" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
     blocked = blocked_phase(torch, hb)
     print("blocked phase: %.1f s" % (time.perf_counter() - t0))
     t0 = time.perf_counter()
@@ -1212,6 +1730,16 @@ def main():
              MARGINAL_N, marginal["steps_per_s"], marginal["busy"], marginal["murray_ms"],
              marginal["native_ms"], max(BLOCKED_N),
              blocked[max(BLOCKED_N)]["chol_ms"] / blocked[max(BLOCKED_N)]["chol_lib_ms"]))
+    ng_svgp = svgp["reg ELBO_analytic + natgrad(1.0)"]["launches"]
+    print("natural gradient: K1/K2 launches a step, SVGP m=%d (B=1, ladder 3) %.3f/%.3f, fleet "
+          "%dx%d (B=%d, ladder %d; the objective's own factorization and solves included) "
+          "%.3f/%.3f; steps_per_s svgp %s; natgrad fleet %.1f; amortized %s"
+          % (SVGP_M, ng_svgp["K1"] / SVGP_STEPS, ng_svgp["K2"] / SVGP_STEPS, FLEET, N, FLEET,
+             3 * FLEET, ng_fleet["launches"]["K1"] / NATGRAD_FLEET_STEPS,
+             ng_fleet["launches"]["K2"] / NATGRAD_FLEET_STEPS,
+             ", ".join("%s=%.1f" % (k, v["steps_per_s"]) for k, v in svgp.items()),
+             ng_fleet["steps_per_s"],
+             ", ".join("%s=%.1f" % (k, v["steps_per_s"]) for k, v in amortized.items())))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

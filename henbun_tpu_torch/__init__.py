@@ -6,7 +6,9 @@ variational posteriors, densities/priors/transforms, GP kernels and
 ``henbunrc`` settings, and ``BatchedOptimizer`` fleets. Batched float32
 Cholesky factorizations and triangular solves run through hand-written CUDA
 kernels (``ops/cuda_chol.py``, ``ops/cuda_solve.py``), and the batched
-Laplace Newton loop through a third (``ops/cuda_newton.py``).
+Laplace Newton loop through a third (``ops/cuda_newton.py``). The natural
+gradient (``optimizers.py``) factors and inverts its Gaussians through the
+first two.
 
 A Model lives on ``[cuda] device`` unless the caller names a device; with
 no CUDA device, pass ``device="cpu"``.
@@ -32,7 +34,9 @@ from . import priors
 from . import variationals
 from . import ops
 from . import model
+from . import nn
 from . import gp
+from . import optimizers
 from . import utils
 from . import batched
 from .batched import BatchedOptimizer

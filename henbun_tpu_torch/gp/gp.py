@@ -23,9 +23,12 @@ def _float_type():
 def _safe_corr_std(diag_cov):
     """sqrt of the correction variance with a jitter floor: the raw
     sqrt(|x|) has an infinite gradient where the explained variance cancels
-    diag_cov to ~0; the floor bounds it at 1/(2 sqrt(jitter))."""
+    diag_cov to ~0; the floor bounds it at 1/(2 sqrt(jitter)). At a row on
+    an inducing point diag_cov can cancel to exactly 0: ``torch.maximum``
+    passes half the gradient there, as ``jnp.maximum`` does (``clamp``
+    would pass all of it)."""
     jitter = settings.numerics.jitter_level
-    return torch.sqrt(torch.clamp(diag_cov, min=0.0) + jitter)
+    return torch.sqrt(torch.maximum(diag_cov, torch.zeros_like(diag_cov)) + jitter)
 
 
 def whitened_conditional(kern, x_new, x, u, q_shape="diagonal"):

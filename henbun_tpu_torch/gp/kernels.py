@@ -98,11 +98,22 @@ class UnitStationary(Kern):
         )
 
     def euclid_dist(self, X, X2):
-        # matmul-form square distances cancel near zero and can come out
-        # slightly NEGATIVE on the diagonal; the clamp and epsilon keep the
-        # sqrt (and its gradient) finite
-        r2 = self.square_dist(X, X2)
-        return torch.sqrt(torch.clamp(r2, min=0.0) + 1e-12)
+        """Euclidean distance matrix in lengthscale units, from the
+        differences: sqrt(sum_k (x_ik - x2_jk)^2 + 1e-12).
+
+        The matmul form of :meth:`square_dist` leaves float32 cancellation
+        noise on the diagonal, where d sqrt(r^2 + 1e-12) / d r^2 is 5e5, and
+        Matern-1/2's exp(-r) keeps a slope of -1 at r = 0: that noise then
+        decides the lengthscale gradient. The differences are exactly zero
+        there, and so is their gradient. (A departure from the JAX package,
+        which takes the matmul form.) It builds the [..., n, n2, d]
+        difference tensor: 64 MB at n = n2 = 4096, d = 1."""
+        X = self._slice(X)
+        X2 = X if X2 is None else self._slice(X2)
+        Xeff = X / self.lengthscales
+        X2eff = X2 / self.lengthscales
+        diff = Xeff[..., :, None, :] - X2eff[..., None, :, :]
+        return torch.sqrt(torch.sum(torch.square(diff), -1) + 1e-12)
 
     def Kdiag(self, X):
         return torch.ones(X.shape[:-1], dtype=_float_type(), device=X.device)

@@ -276,7 +276,9 @@ class Optimizer:
 
         - optimizer: a factory ``params -> torch.optim.Optimizer``
           (default: :func:`adam` at ``learning_rate``). A learning-rate
-          schedule belongs in the factory.
+          schedule belongs in the factory. A factory with a true
+          ``henbun_natgrad`` attribute (``optimizers.natural_gradient``)
+          gets the ``{path: tensor}`` dict instead of the list.
         - collection: the variable tag to optimize; everything else is frozen.
         - num_elbo_samples: S > 1 averages S independently drawn samples of
           the objective per step.
@@ -305,7 +307,12 @@ class Optimizer:
             )
         self._trainable = {k: v.requires_grad_(True) for k, v in trainable.items()}
         self._frozen = frozen
-        self.torch_optimizer = self.optimizer(list(self._trainable.values()))
+        # the natural gradient's factory takes the {path: tensor} dict; a
+        # plain one takes the list of tensors
+        if getattr(self.optimizer, "henbun_natgrad", False):
+            self.torch_optimizer = self.optimizer(self._trainable)
+        else:
+            self.torch_optimizer = self.optimizer(list(self._trainable.values()))
         self._diag_guards = {}
         self._evaluate_core_aux = _average_samples(
             self._objective(self._diag_guards), int(num_elbo_samples)
@@ -554,7 +561,6 @@ class Optimizer:
         """
         self._require_compiled()
         self._refresh_params()
-        model = self.model
         data, train_idx, train_size = self._prepare_optimize_data(
             self._data_args(), minibatch_size, minibatch_mode
         )
@@ -581,13 +587,11 @@ class Optimizer:
                         if not np.isfinite(objs_host).all():
                             # leave the model at the last GOOD state
                             self._rollback(snap)
-                            model_hint = getattr(model, "_nan_hint", None)
                             raise FloatingPointError(
                                 "objective went non-finite at step ~%d twice "
                                 "in a row; aborting (first failure at chunk "
                                 "offset %d).%s"
-                                % (self.global_step + n, bad_at,
-                                   " " + model_hint if model_hint else "")
+                                % (self.global_step + n, bad_at, self._nan_hint())
                             )
                         if settings.verbosity.optimisation_verb:
                             print(
@@ -608,6 +612,23 @@ class Optimizer:
         finally:
             self._commit_params(self._trainable)
         return self
+
+    def _nan_hint(self):
+        """The remedy a nan-guard abort names: the model's own hint if it
+        declares one, else the objective-pairing rule under the natural
+        gradient, else nothing."""
+        model_hint = getattr(self.model, "_nan_hint", None)
+        if model_hint:
+            return " " + model_hint
+        if getattr(self.optimizer, "henbun_natgrad", False):
+            return (
+                " Likely cause with natural gradients: a stochastic (MC)"
+                " objective with gamma beyond the gradient estimate's"
+                " accuracy. The pairing rule is MC ELBO -> Adam (or"
+                " natural_gradient(..., gamma<=0.01, adaptive=True));"
+                " analytic/deterministic ELBO -> unit-gamma natgrad."
+            )
+        return ""
 
     def _check_diagnostics(self, diags, n, snap):
         """Log each reported diagnostic's latest value; a guarded one aborts

@@ -4,11 +4,12 @@ Gaussian or robust Student-t likelihood, and trainable kernel variance /
 lengthscale / noise variance.
 
 The port carries ``GPR.setUp``, ``f_sample``, ``predict_f``,
-``ELBO_gaussian``, ``ELBO_student``, ``ELBO_analytic``, the Laplace
+``ELBO_gaussian``, ``ELBO_student``, ``ELBO_analytic``,
+``ELBO_student_quadrature``, the Laplace
 evidence ``log_marginal_laplace_student`` with ``laplace_student`` and
 ``predict_f_laplace``, ``make_sine_dataset``, and ``GPRMarginal`` (the
-exact-marginal evidence, ``predict_f``); the EP and quadrature objectives
-come with their own slices.
+exact-marginal evidence, ``predict_f``); the EP objectives come with
+their own slice.
 """
 from __future__ import annotations
 
@@ -80,6 +81,23 @@ class GPR(Model):
         ell = torch.sum(densities.gaussian(self.Y, fmean, self.var)) - torch.sum(
             fvar
         ) / (2.0 * self.var[0])
+        return ell - self.KL()
+
+    @AutoOptimize()
+    def ELBO_student_quadrature(self):
+        """Deterministic robust-regression ELBO: the Student-t likelihood
+        has no closed-form Gaussian expectation, so each marginal f_i is
+        integrated by Gauss-Hermite quadrature (``ops/quadrature.py``), the
+        zero-variance counterpart of ``ELBO_student``."""
+        from ..ops.quadrature import gauss_hermite_expectation
+
+        fmean, fvar = self._f_marginals()
+        y = self.Y[:, 0]
+
+        def log_lik(f):  # f: [n, deg]
+            return densities.student_t(y[:, None], f, self.var, 3.0)
+
+        ell = torch.sum(gauss_hermite_expectation(log_lik, fmean[:, 0], fvar))
         return ell - self.KL()
 
     def _student_loglik(self):

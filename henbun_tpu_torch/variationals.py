@@ -1,7 +1,7 @@
 """Variational posteriors with reparameterized single-sample KL estimation.
 
 ``Variational`` (diagonal / fullrank / fullrank_packed Gaussian q) and the
-predefined ``Normal``, ``Gaussian`` and ``OffsetGaussian``.
+predefined ``Normal``, ``Gaussian``, ``OffsetGaussian`` and ``Beta``.
 
 Reparameterization noise ``u`` comes from the trace context
 (:meth:`~henbun_tpu_torch.core.context.TraceContext.node_noise`), once per
@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ._settings import settings, np_float
-from . import transforms, priors
+from . import densities, transforms, priors
 from .core import context as _ctx
 from .core.param import (
     Variable, graph_key, Parameterized, _in_collections, _tree_device,
@@ -359,3 +359,60 @@ class OffsetGaussian(Gaussian):
 
     def tensor(self):
         return Gaussian.tensor(self) + self.offset
+
+
+class Beta(Variational):
+    """Posterior mapped to (0, 1) by a Logistic transform, with a Beta prior
+    whose ``alpha`` and ``beta`` are trainable positive Variables. It is
+    Gaussian in free space, so the natural gradient steps its
+    (q_mu, q_sqrt) pair; ``alpha`` and ``beta`` go to the other optimizer."""
+
+    def __init__(
+        self,
+        shape,
+        n_layers=[],
+        n_batch=None,
+        q_shape="diagonal",
+        mean=0.0,
+        stddev=1.0,
+        collections=None,
+        scale_shape=None,
+        scale_n_layers=None,
+    ):
+        Variational.__init__(
+            self,
+            shape,
+            q_shape=q_shape,
+            n_layers=n_layers,
+            n_batch=n_batch,
+            mean=mean,
+            stddev=stddev,
+            transform=transforms.Logistic(),
+            collections=collections,
+        )
+        scale_shape = scale_shape or [1 for _ in self._shape]
+        scale_layer = scale_n_layers or [1 for _ in self.n_layers]
+        self.alpha = Variable(
+            scale_shape,
+            n_layers=scale_layer,
+            n_batch=n_batch,
+            mean=1.0,
+            stddev=0.1,
+            transform=transforms.positive,
+            collections=collections,
+        )
+        self.beta = Variable(
+            scale_shape,
+            n_layers=scale_layer,
+            n_batch=n_batch,
+            mean=1.0,
+            stddev=0.1,
+            transform=transforms.positive,
+            collections=collections,
+        )
+
+    def _KL(self):
+        s = self._state()
+        kl = -0.5 * torch.sum(np.log(2.0 * np.pi) + self.logdet + torch.square(s["u"]))
+        kl = kl - torch.sum(densities.beta(self.alpha, self.beta, s["transformed"]))
+        return kl - torch.sum(self.transform.tf_log_jacobian(s["raw"]))

@@ -399,3 +399,69 @@ def test_gpr_marginal_on_the_card_matches_the_cpu():
     for k, want in g_cpu.items():
         np.testing.assert_allclose(g_card[k], want, rtol=1e-4, atol=1e-4 * np.abs(want).max(),
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("B,n", [(1, 128), (3, 128), (48, 40)])
+def test_kernels_at_the_natural_gradients_shapes(B, n):
+    """K1 and K2 at the shapes the natural gradient gives them (SVGP q(u)
+    at m = 128: B = 1, and 3 with the stacked retry ladder; the 16-model
+    natgrad fleet at n = 40: B = 48), K2 as L X = I: against the plain
+    versions, atol 1e-5 on O(1) factors."""
+    dev = _card()
+    A = torch.tensor(_spd(B, n, seed=B + n), device=dev)
+    before = cuda_chol.cholesky128_vbatched.launches
+    L = cuda_chol.cholesky128_vbatched(A)
+    assert cuda_chol.cholesky128_vbatched.launches == before + 1
+    torch.testing.assert_close(L, cuda_chol.cholesky128_plain(A), rtol=1e-5, atol=1e-5)
+    Lf = torch.tensor(_lower(B, n, seed=B * n), device=dev)
+    eye = torch.eye(n, device=dev).expand(B, n, n).contiguous()
+    X = cuda_solve.tri_solve128_vbatched(Lf, eye, False)
+    torch.testing.assert_close(X, cuda_solve.tri_solve128_plain(Lf, eye, False), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_natgrad_fleet_step_kernels_on_matches_off():
+    """One natural-gradient step of a 4-model GPR fleet (analytic KL,
+    ELBO_student_quadrature, gamma 0.2): the stacked ladder factors
+    [12, 40, 40] in one K1 launch and inverts it in one K2 launch. The
+    natural step solves with Sigma^-1, so float32 rounding moves q_mu by
+    about 1e-4 of itself on any float32 path; both the kernels' step and
+    the one with use_kernels off are held to a float64 step from the same
+    weights, each leaf's kernel error at most 3x the library's plus 1e-5
+    of the leaf's largest entry."""
+    dev = _card()
+    from henbun_tpu_torch import optimizers
+
+    def fleet():
+        thb.set_seed(0)
+        ms = []
+        for i in range(4):
+            rng = np.random.default_rng(i)
+            X = np.sort(rng.uniform(0, 6, 40)).astype(np.float32)[:, None]
+            Y = (np.sin(X) + 0.3 * rng.normal(size=X.shape)).astype(np.float32)
+            ms.append(thb.models.GPR(seed=i, X=X, Y=Y, analytic_kl=True, device=dev))
+        return thb.BatchedOptimizer(ms, "ELBO_student_quadrature").compile(
+            optimizers.natural_gradient(ms[0], gamma=0.2, rest=thb.adam(0.02)))
+
+    out = {}
+    for run, use_kernels, dtype in (("on", True, torch.float32), ("off", False, torch.float32),
+                                    ("f64", False, torch.float64)):
+        cfg = thb.settings.get_settings()
+        cfg.cuda.use_kernels = use_kernels
+        cfg.dtypes.float_type = dtype
+        with thb.settings.temp_settings(cfg):
+            bo = fleet()
+            counts = (cuda_chol.cholesky128_vbatched.launches,
+                      cuda_solve.tri_solve128_vbatched.launches)
+            bo.optimize(maxiter=1)
+            after = (cuda_chol.cholesky128_vbatched.launches,
+                     cuda_solve.tri_solve128_vbatched.launches)
+        # the objective: K1 once, K2 twice (its backward); the natural
+        # gradient: K1 twice, K2 twice
+        assert after == ((counts[0] + 3, counts[1] + 4) if use_kernels else counts)
+        out[run] = {k: v.detach().cpu().double().numpy() for k, v in bo._trainable.items()}
+    for k, want in out["f64"].items():
+        scale = max(np.abs(want).max(), 1e-6)
+        err_on = np.abs(out["on"][k] - want).max() / scale
+        err_off = np.abs(out["off"][k] - want).max() / scale
+        assert err_on <= 3 * err_off + 1e-5, (k, err_on, err_off)
