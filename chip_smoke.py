@@ -57,7 +57,22 @@ Run from the root of a checkout. Phases, each of which fails the run:
    to float64 (natgrad_checks);
 12. natgrad fleet: 16 GPRs on ELBO_student_quadrature with
    natural_gradient(0.2) (n = 40, the Laplace fleet's data), 200 steps,
-   launches counted, 20 steps kernels on vs off.
+   launches counted, 20 steps kernels on vs off;
+13. EP fleets: 16 robust GPRs on log_marginal_ep_student (n = 40, Adam
+   0.02, 200 steps) and 16 GPCs on log_marginal_ep (n = 60, Adam 0.05,
+   100 steps): K1 and K2 launches and host reads a step, ep_delta, 20
+   steps kernels on vs off, card vs CPU evidence and gradient, steps/s
+   with the kernels on and off;
+14. sparse evidence at n = 1e5, m = 128, full batch
+   (benchmarks/families_bench.py's rows): SparseGPC Laplace (200 steps)
+   and EP (100), SparseGPRobust Laplace (200, 4% gross outliers) and
+   unrolled EP (30), SparseGPC with train_z (100); card vs CPU at the
+   initial weights, the JAX tests' accuracy gates, steps/s, host reads a
+   step, a traced window, peak memory;
+15. sparse fleet: 16 SparseGPCs at n = 96, m = 24 (Laplace, 100 steps),
+   K3 once a step, 20 steps kernels on vs off;
+16. resume: save_state after 50 steps of phase 14's SparseGPC Laplace run,
+   restore_state into a fresh optimizer, 20 steps each way.
 
 The kernel phase also checks K1 and K2 at the natural gradient's shapes
 (B = 1 and 3 at n = 128, B = 48 at n = 40; K2 as L X = I), and holds K4
@@ -131,6 +146,38 @@ NATGRAD_FLEET_STEPS = 200
 # library path's in 20 steps, one update 0.50x and 1.07x the CPU's)
 NATGRAD_F32_FACTOR = 2.0
 U32 = 2.0 ** -24           # float32's unit roundoff
+# the 60-sweep Student-t EP's gradients: float32 paths land up to 2.3e-4 of
+# the leaf from float64 (tests/test_torch_ep.py holds both packages at 5e-4)
+STUDENT_EP_F32_TOL = 5e-4
+# the sparse families' gradients at n = 1e5, m = 128, as far as float32
+# holds them: Kmm + jitter I at the quantile z has condition ~3.8e5
+# (sparse_kmm_cond prints it), and float32 rounding through its factor
+# reaches the lengthscale gradient; the EP sweeps do not settle in float32
+# either (largest site change ~0.02 a sweep, float64's 2e-8), and the
+# Student-t ones are unrolled. Measured from float64 at the initial weights
+# (CPU / card float32): Laplace lengthscale 1.9e-3 / 5.3e-4 (SparseGPC),
+# 7.4e-5 / 3.7e-3 (SparseGPRobust); EP 4.9e-3 / 1.2e-2 (SparseGPC), k_var
+# 1.0e-2 / 3.7e-2 (SparseGPRobust, unrolled). The bounds sit ~3x above
+# the largest
+SPARSE_LAPLACE_F32_TOL = 1e-2
+SPARSE_EP_F32_TOL = 1e-1
+# EP fleets (benchmarks/laplace_bench.py --engine ep, tests/test_ep.py:208)
+EP_GPR_STEPS = 200
+EP_GPC_STEPS = 100
+EP_PROFILE_STEPS = 2       # a traced EP fleet step holds 3,000-7,000 device operations
+READ_STEPS = 3             # steps counted under torch.cuda's sync debug mode
+# sparse evidence at families_bench.py's width
+SPARSE_N = 100_000
+SPARSE_M = 128
+SPARSE_PROFILE_STEPS = 10
+UNROLLED_PROFILE_STEPS = 2  # an unrolled robust EP step holds ~17,600 device operations
+SPARSE_FLEET_N = 96
+SPARSE_FLEET_M = 24
+SPARSE_FLEET_STEPS = 100
+RESUME_AT = 50
+RESUME_STEPS = 20
+RESUME_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "chip_smoke_resume.pt")
 
 
 def fail(msg):
@@ -689,6 +736,9 @@ FLEETS = {
     "gpr": ("ELBO_gaussian", 0.01),
     "laplace": ("log_marginal_laplace_student", 0.02),
     "gpc": ("log_marginal_laplace", 0.05),
+    "ep_gpr": ("log_marginal_ep_student", 0.02),
+    "ep_gpc": ("log_marginal_ep", 0.05),
+    "sparse": ("log_marginal_laplace", 0.05),
 }
 
 
@@ -698,11 +748,16 @@ def make_models(hb, device, kind):
     for i in range(FLEET):
         if kind == "gpr":
             X, Y = hb.models.make_sine_dataset(n=N, seed=i)
-        elif kind == "laplace":
+        elif kind in ("laplace", "ep_gpr"):
             X, Y = robust_toy(N, seed=i)
+        elif kind == "sparse":
+            X, Y = gpc_data(SPARSE_FLEET_N, seed=i)
+            models.append(hb.models.SparseGPC(seed=i, X=X, Y=Y, num_inducing=SPARSE_FLEET_M,
+                                              device=device))
+            continue
         else:
             X, Y = gpc_data(GPC_N, seed=i)
-        cls = hb.models.GPC if kind == "gpc" else hb.models.GPR
+        cls = hb.models.GPC if kind in ("gpc", "ep_gpc") else hb.models.GPR
         models.append(cls(seed=i, X=X, Y=Y, device=device))
     return models
 
@@ -960,6 +1015,41 @@ def profile_window(torch, hb, label, opt, steps, **optimize_kw):
     return busy_ms / wall_ms
 
 
+def busy_window(torch, hb, label, opt, steps):
+    """A traced window of `steps` optimization steps of a path that has just
+    run, with the card's activity only (torch.profiler, CUDA): the share
+    of the window the card was busy, device operations a step and the
+    kernels that took most of the busy time. Recording no host activity
+    keeps the report to seconds for windows of 10,000-40,000 device
+    operations. Returns the busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with hb.settings.temp_settings(settings_with(hb, scan_chunk=steps)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            opt.optimize(maxiter=steps)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = device_events(torch, prof)
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    print("profile: %s %d steps wall_ms=%.3f device_busy_ms=%.3f busy_share=%.4f "
+          "device_ops=%d per_step=%.1f"
+          % (label, steps, wall_ms, busy_ms, busy_ms / wall_ms, len(events),
+             len(events) / steps))
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+        print("  device %.3f ms (%.1f%% of busy) %s" % (ms, 100 * ms / max(busy_ms, 1e-9), name[:90]))
+    shares = {src: sum(ms for name, ms in by_name.items() if src in name)
+              for src in ("chol128", "trisolve128", "newton128")}
+    print("  kernels' share of busy: %s" % ", ".join(
+        "%s %.3f ms (%.1f%%)" % (src, ms, 100 * ms / max(busy_ms, 1e-9))
+        for src, ms in shares.items()))
+    return busy_ms / wall_ms
+
+
 def single_phase(torch, hb):
     from henbun_tpu_torch.ops import cuda_chol, cuda_solve
 
@@ -1071,13 +1161,15 @@ def marginal_data(n, seed=0):
 
 
 def value_and_grad(opt):
-    """An Optimizer's objective and gradients at its current weights."""
+    """An Optimizer's objective and gradients at its current weights (the
+    leaves the objective reaches)."""
     for t in opt._trainable.values():
         t.grad = None
     val, _ = opt._evaluate_core_aux(opt._trainable, opt._frozen, opt._data_args(),
                                     opt.model.generator, None)
     val.backward()
-    return val.item(), {k: t.grad.detach().cpu().numpy() for k, t in opt._trainable.items()}
+    return val.item(), {k: t.grad.detach().cpu().numpy() for k, t in opt._trainable.items()
+                        if t.grad is not None}
 
 
 def marginal_phase(torch, hb):
@@ -1619,6 +1711,336 @@ def natgrad_fleet_phase(torch, hb):
     return {"steps_per_s": rate, "busy": busy, "launches": launches}
 
 
+# ------------------------------------------------- slice 7: EP and sparse evidence
+def host_reads(torch, fn):
+    """fn() under torch.cuda's sync debug mode: returns (fn's result, the
+    number of synchronizing operations it made: host reads of device
+    values and device-to-host copies), counted from the mode's warnings."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def leaf_rel(g, ref):
+    """{leaf: max |g - ref| over ref's largest entry}."""
+    return {k: float(np.abs(g[k] - ref[k]).max() / np.abs(ref[k]).max()) for k in ref}
+
+
+def held_to_cpu(torch, hb, label, card_opt, opt_fn, f32_tol=1e-4):
+    """An objective and its gradients on the card against the CPU's from the
+    same weights: rtol 1e-4 of the value and of each leaf's largest entry.
+    A leaf whose gradient misses that is arbitrated by the card's float64
+    evaluation (the same code on cuSOLVER and cuBLAS in float64): where
+    float32 can hold the leaf to `f32_tol` (the CPU float32 path within it
+    of float64), the card's float32 gradient must too. opt_fn(device)
+    builds an Optimizer on `device` under the current float type. Returns
+    a text of the numbers."""
+    v_card, g_card = value_and_grad(card_opt)
+    t0 = time.perf_counter()
+    v_cpu, g_cpu = value_and_grad(opt_fn("cpu"))
+    cpu_s = time.perf_counter() - t0
+    rel = abs(v_card - v_cpu) / abs(v_cpu)
+    grel = leaf_rel(g_card, g_cpu)
+    check(rel <= 1e-4, "%s: card vs CPU objective %g / %g (rel %g)" % (label, v_card, v_cpu, rel))
+    text = "card vs CPU %.6f / %.6f rel=%.3g grad_rel %s (CPU %.1f s)" % (
+        v_card, v_cpu, rel, " ".join("%s=%.3g" % kv for kv in sorted(grel.items())), cpu_s)
+    missed = [k for k, r in grel.items() if r > 1e-4]
+    if not missed:
+        return text
+    cfg = hb.settings.get_settings()
+    cfg.dtypes.float_type = torch.float64
+    with hb.settings.temp_settings(cfg):
+        v64, g64 = value_and_grad(opt_fn("cuda"))
+    dev_card, dev_cpu = leaf_rel(g_card, g64), leaf_rel(g_cpu, g64)
+    for k in missed:
+        if dev_cpu[k] <= f32_tol:
+            check(dev_card[k] <= f32_tol, "%s: %s gradient card %g (CPU %g) from float64, "
+                  "tolerance %g" % (label, k, dev_card[k], dev_cpu[k], f32_tol))
+    return text + "; card float64 %.6f: float32 grad from float64 card %s cpu %s (tol %g)" % (
+        v64, " ".join("%s=%.3g" % kv for kv in sorted(dev_card.items())),
+        " ".join("%s=%.3g" % kv for kv in sorted(dev_cpu.items())), f32_tol)
+
+
+def fleet_cpu_check(torch, hb, kind, on_card):
+    """held_to_cpu for a fleet of `kind` at on_card's weights."""
+    method, lr = FLEETS[kind]
+    trained = {k: v.detach().cpu() for k, v in on_card._trainable.items()}
+    dtype = lambda: hb.settings.dtypes.float_type
+
+    def opt_fn(device):
+        models = make_models(hb, device, kind)
+        for i, m in enumerate(models):
+            m.set_param_dict({k: v[i].to(dtype()) for k, v in trained.items()})
+        return hb.BatchedOptimizer(models, method).compile(learning_rate=lr)
+
+    return held_to_cpu(torch, hb, kind + " fleet", on_card, opt_fn,
+                       STUDENT_EP_F32_TOL if kind == "ep_gpr" else 1e-4)
+
+
+def ep_fleet_phase(torch, hb):
+    """The EP fleets (benchmarks/laplace_bench.py --engine ep's workload and
+    tests/test_ep.py's): 16 robust GPRs on log_marginal_ep_student (n = 40,
+    robust_toy data, Adam 0.02, EP_GPR_STEPS steps) and 16 GPCs on
+    log_marginal_ep (n = 60, gpc_data, Adam 0.05, EP_GPC_STEPS steps). For
+    each: K1 and K2 launches a step (every sweep factors and solves on
+    them), host reads a step, the objective finite and rising, ep_delta
+    below 1e-2 (GPC); CHECK_STEPS steps with the kernels against as many
+    without (1e-4 of the objective's scale), the evidence and gradients on
+    the card against the CPU's at the initial weights (held_to_cpu), and
+    the fleet's steps/s with the kernels on and off."""
+    out = {}
+    for kind, steps in (("ep_gpr", EP_GPR_STEPS), ("ep_gpc", EP_GPC_STEPS)):
+        t0 = time.perf_counter()
+        ref = fleet_cpu_check(torch, hb, kind, make_fleet(hb, "cuda", kind))
+        print("  (%s: %.1f s to check against the CPU)" % (kind, time.perf_counter() - t0))
+        bo = make_fleet(hb, "cuda", kind)
+        hist, seconds, launches = run_path(torch, hb, bo, steps)
+        first, last = check_rises(hist, kind + " fleet", 20)
+        check(launches["K1"] >= 30 * steps and launches["K2"] >= 30 * steps,
+              "%s: K1/K2 launched %r in %d steps" % (kind, launches, steps))
+        delta = bo.metrics.rows[-1].get("ep_delta")
+        check(delta is not None and delta < 1e-2, "%s: ep_delta %r" % (kind, delta))
+        _, reads = host_reads(torch, lambda: bo.optimize(maxiter=READ_STEPS))
+        runs, rates = {}, {}
+        for use_kernels in (True, False):
+            o = make_fleet(hb, "cuda", kind)
+            with hb.settings.temp_settings(settings_with(hb, use_kernels=use_kernels)):
+                runs[use_kernels], s, ln = run_path(torch, hb, o, CHECK_STEPS)
+            if not use_kernels:
+                check(sum(ln.values()) == 0, "%s: use_kernels off launched %r" % (kind, ln))
+            rates[use_kernels] = CHECK_STEPS / s
+        diff = np.abs(runs[True] - runs[False])
+        agree = float(diff.max() / np.abs(runs[False]).max())
+        check(agree <= 1e-4, "%s kernels vs use_kernels=False: %g of the scale" % (kind, agree))
+        print("ep fleet: %s fleet=%d n=%d %s steps=%d seconds=%.3f steps_per_s=%.2f evidence "
+              "first20=%.3f last20=%.3f ep_delta=%s launches %s per_step K1=%.2f K2=%.2f "
+              "host_reads_per_step=%.2f; %s; "
+              "%d steps kernels vs off max_diff/scale=%.3g; steps_per_s kernels_on=%.2f off=%.2f"
+              % (kind, FLEET, N if kind == "ep_gpr" else GPC_N, FLEETS[kind][0], steps, seconds,
+                 steps / seconds, first, last, "%.3g" % delta if delta is not None else "-",
+                 " ".join("%s=%d" % kv for kv in sorted(launches.items())),
+                 launches["K1"] / steps, launches["K2"] / steps, reads / READ_STEPS, ref,
+                 CHECK_STEPS, agree, rates[True], rates[False]))
+        t0 = time.perf_counter()
+        busy = busy_window(torch, hb, kind + " fleet", bo, EP_PROFILE_STEPS)
+        print("  (%s: traced window and its report %.1f s)" % (kind, time.perf_counter() - t0))
+        out[kind] = {"launches": launches, "steps": steps, "steps_per_s": steps / seconds,
+                     "reads": reads / READ_STEPS, "busy": busy}
+    return out
+
+
+def sparse_data(n, seed=0):
+    """n sorted U[0, 6] rows with Bernoulli labels from sigmoid(3 sin x)
+    (test_gpc.py's generator) and Student-t targets sin(x) + 0.2 N(0, 1)
+    with 4% of the rows moved by +-4 (test_laplace.py's outlier bed)."""
+    rng = np.random.default_rng(seed)
+    X = np.sort(rng.uniform(0, 6, (n, 1))).astype(np.float32)
+    p_true = 1.0 / (1.0 + np.exp(-3.0 * np.sin(X)))
+    Yc = (rng.uniform(size=X.shape) < p_true).astype(np.float32)
+    Yr = np.sin(X) + rng.normal(size=X.shape).astype(np.float32) * 0.2
+    idx = rng.choice(n, n // 25, replace=False)
+    Yr[idx] += rng.choice([-4.0, 4.0], len(idx))[:, None]
+    return X, Yc, Yr.astype(np.float32)
+
+
+# name -> (family, objective, steps, model keywords)
+SPARSE_RUNS = {
+    "SparseGPC laplace": ("gpc", "log_marginal_laplace", 200, {}),
+    "SparseGPC ep": ("gpc", "log_marginal_ep", 100, {}),
+    "SparseGPRobust laplace": ("robust", "log_marginal_laplace", 200, {}),
+    "SparseGPRobust ep (unrolled)": ("robust", "log_marginal_ep", 30, {}),
+    "SparseGPC laplace train_z": ("gpc", "log_marginal_laplace", 100, {"train_z": True}),
+}
+
+
+def sparse_model(hb, data, family, device=None, **kw):
+    X, Yc, Yr = data
+    hb.set_seed(0)
+    if family == "gpc":
+        return hb.models.SparseGPC(seed=0, X=X, Y=Yc, num_inducing=SPARSE_M, device=device, **kw)
+    return hb.models.SparseGPRobust(seed=0, X=X, Y=Yr, num_inducing=SPARSE_M, device=device, **kw)
+
+
+def sparse_cpu_check(torch, hb, data, name, model, opt):
+    """held_to_cpu for a sparse run at the model's (initial) weights."""
+    family, method, _, kw = SPARSE_RUNS[name]
+    params = {k: v.detach().cpu() for k, v in model.param_dict().items()}
+
+    def opt_fn(device):
+        m = sparse_model(hb, data, family, device=device, **kw)
+        m.set_param_dict({k: v.to(hb.settings.dtypes.float_type) for k, v in params.items()})
+        return getattr(m, method)().compile(learning_rate=0.05)
+
+    tol = SPARSE_EP_F32_TOL if method == "log_marginal_ep" else SPARSE_LAPLACE_F32_TOL
+    return "%s; %s" % (sparse_kmm_cond(torch, hb, model),
+                       held_to_cpu(torch, hb, name, opt, opt_fn, tol))
+
+
+def sparse_kmm_cond(torch, hb, model):
+    """The 2-norm condition number of Kmm + jitter I at the model's z and
+    kernel, with the jitter kern.Cholesky adds (float64)."""
+    K = model.run(lambda mm: mm.gp.kern.K(mm.gp.z)).double().cpu()
+    m = K.shape[0]
+    jitter = hb.settings.numerics.jitter_level * max(1.0, m / 96.0)
+    K = K + jitter * torch.eye(m, dtype=K.dtype)
+    return "Kmm+jitter cond=%.3g" % float(torch.linalg.cond(K))
+
+
+def sparse_accuracy(torch, hb, name, model):
+    """The JAX tests' accuracy gates after training: mean |p - p_true| <
+    0.03 on the grid (test_gpc.py) for the classifier's Laplace fit, RMSE
+    against the clean sine < 0.05 (test_laplace.py) for the robust
+    Laplace fit; the EP fits' accuracy is printed. A Laplace fit must end
+    at a mode (grad_norm < 1)."""
+    from henbun_tpu_torch.inference.laplace import laplace_whitened
+
+    grid = np.linspace(0.1, 5.9, 40, dtype=np.float32)[:, None]
+    family, method = SPARSE_RUNS[name][:2]
+    laplace = method == "log_marginal_laplace"
+    if family == "gpc":
+        p = model.run(lambda mm: mm.predict_p(grid) if laplace else mm.predict_p_ep(grid))
+        truth = 1.0 / (1.0 + np.exp(-3.0 * np.sin(grid[:, 0])))
+        err = float(np.abs(p.cpu().numpy()[:, 0] - truth).mean())
+        what, gate = "mean|p-p_true|", 0.03
+    else:
+        mean, var = model.run(lambda mm: mm.predict_f(grid) if laplace else mm.predict_f_ep(grid))
+        check(bool((var > 0).all()), "%s: non-positive predictive variance" % name)
+        err = float(np.sqrt(np.mean((mean.cpu().numpy()[:, 0] - np.sin(grid[:, 0])) ** 2)))
+        what, gate = "rmse", 0.05
+    text = "%s=%.4f" % (what, err)
+    if laplace:
+        check(err < gate, "%s: %s %g, gate %g" % (name, what, err, gate))
+        gnorm = float(model.run(lambda mm: laplace_whitened(
+            mm._loglik(), mm._A(mm.x), newton_iters=mm._newton_iters,
+            fused=mm._fused()).grad_norm))
+        check(gnorm < 1, "%s: grad_norm %g after the fit" % (name, gnorm))
+        text += " (gate %g) grad_norm=%.3g" % (gate, gnorm)
+    return text
+
+
+def sparse_phase(torch, hb):
+    """Sparse evidence at full width (benchmarks/families_bench.py:100-114,
+    docs/PERF.md:399-401): n = 1e5 sorted U[0, 6] rows, m = 128, full batch
+    on the card, each run of SPARSE_RUNS from its initial weights: the card
+    against the CPU there, the objective finite and rising, the accuracy
+    gates, steps/s, host reads a step, a traced window's busy share and
+    device operations a step, the peak memory. The SparseGPC Laplace run
+    saves its training state after RESUME_AT steps for resume_phase."""
+    data = sparse_data(SPARSE_N)
+    out = {}
+    for name, (family, method, steps, kw) in SPARSE_RUNS.items():
+        model = sparse_model(hb, data, family, **kw)
+        opt = getattr(model, method)().compile(learning_rate=0.05)
+        t0 = time.perf_counter()
+        ref = sparse_cpu_check(torch, hb, data, name, model, opt)
+        check_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        resume = None
+        if name == "SparseGPC laplace":
+            h1, s1, _ = run_path(torch, hb, opt, RESUME_AT)
+            os.makedirs(os.path.dirname(RESUME_PATH), exist_ok=True)
+            opt.save_state(RESUME_PATH)
+            h2, s2, _ = run_path(torch, hb, opt, RESUME_STEPS)
+            resume = {"hist": h2, "params": {k: v.detach().clone()
+                                               for k, v in opt._trainable.items()}}
+            h3, s3, launches = run_path(torch, hb, opt, steps - RESUME_AT - RESUME_STEPS)
+            hist, seconds = np.concatenate([h1, h2, h3]), s1 + s2 + s3
+        else:
+            hist, seconds, launches = run_path(torch, hb, opt, steps)
+        peak = torch.cuda.max_memory_allocated()
+        first, last = check_rises(hist / SPARSE_N, name, 10)
+        accuracy = sparse_accuracy(torch, hb, name, model)
+        if kw.get("train_z"):
+            spacing = hb.gp.gp.z_min_spacing(model.gp.z.value)
+            check(spacing > 0.5 * model._z_d0, "%s: min z spacing %g below d0/2 = %g"
+                  % (name, spacing, 0.5 * model._z_d0))
+            accuracy += " min_z_spacing=%.4g d0=%.4g" % (spacing, model._z_d0)
+        if method == "log_marginal_ep" and family == "gpc":
+            accuracy += " ep_delta=%.3g" % opt.metrics.rows[-1]["ep_delta"]
+        _, reads = host_reads(torch, lambda: opt.optimize(maxiter=READ_STEPS))
+        rate = steps / seconds
+        print("sparse path: %s n=%d m=%d %s steps=%d seconds=%.3f steps_per_s=%.2f "
+              "objective_per_point first10=%.5f last10=%.5f host_reads_per_step=%.1f "
+              "peak_mem_gib=%.2f launches %s; %s; %s"
+              % (name, SPARSE_N, SPARSE_M, method, steps, seconds, rate, first, last,
+                 reads / READ_STEPS, peak / 2**30,
+                 " ".join("%s=%d" % kv for kv in sorted(launches.items())), accuracy, ref))
+        t0 = time.perf_counter()
+        traced = UNROLLED_PROFILE_STEPS if name == "SparseGPRobust ep (unrolled)" else SPARSE_PROFILE_STEPS
+        busy = busy_window(torch, hb, "sparse " + name, opt, traced)
+        print("  (%s: %.1f s to check against the CPU, %.1f s traced window and its report)"
+              % (name, check_s, time.perf_counter() - t0))
+        out[name] = {"steps_per_s": rate, "busy": busy, "reads": reads / READ_STEPS,
+                     "peak": peak, "resume": resume}
+    return out
+
+
+def sparse_fleet_phase(torch, hb):
+    """16 SparseGPCs at n = 96, m = 24 (the rectangular shape the kernel
+    phase checks K3 at) on the Laplace evidence, Adam 0.05,
+    SPARSE_FLEET_STEPS steps: K3 once a step, K1 and K2 counted; then
+    CHECK_STEPS steps with the kernels against as many without (1e-4 of
+    the evidence's scale)."""
+    opt = make_fleet(hb, "cuda", "sparse")
+    hist, seconds, launches = run_path(torch, hb, opt, SPARSE_FLEET_STEPS)
+    first, last = check_rises(hist, "sparse fleet", 20)
+    check(launches["K3"] == SPARSE_FLEET_STEPS,
+          "sparse fleet: K3 launched %d times in %d steps" % (launches["K3"], SPARSE_FLEET_STEPS))
+    check(launches["K1"] > 0 and launches["K2"] > 0, "sparse fleet: launches %r" % launches)
+    _, reads = host_reads(torch, lambda: opt.optimize(maxiter=READ_STEPS))
+    runs = {}
+    for use_kernels in (True, False):
+        o = make_fleet(hb, "cuda", "sparse")
+        with hb.settings.temp_settings(settings_with(hb, use_kernels=use_kernels)):
+            runs[use_kernels], _, ln = run_path(torch, hb, o, CHECK_STEPS)
+        if not use_kernels:
+            check(sum(ln.values()) == 0, "sparse fleet: use_kernels off launched %r" % ln)
+    diff = np.abs(runs[True] - runs[False])
+    agree = float(diff.max() / np.abs(runs[False]).max())
+    check(agree <= 1e-4, "sparse fleet kernels vs use_kernels=False: %g of the scale" % agree)
+    rate = SPARSE_FLEET_STEPS / seconds
+    print("sparse fleet: fleet=%d n=%d m=%d log_marginal_laplace steps=%d seconds=%.3f "
+          "steps_per_s=%.2f evidence first20=%.3f last20=%.3f launches %s per_step K1=%.2f "
+          "K2=%.2f K3=%.2f host_reads_per_step=%.1f; %d steps kernels vs off max_diff/scale=%.3g"
+          % (FLEET, SPARSE_FLEET_N, SPARSE_FLEET_M, SPARSE_FLEET_STEPS, seconds, rate, first, last,
+             " ".join("%s=%d" % kv for kv in sorted(launches.items())),
+             launches["K1"] / SPARSE_FLEET_STEPS, launches["K2"] / SPARSE_FLEET_STEPS,
+             launches["K3"] / SPARSE_FLEET_STEPS, reads / READ_STEPS, CHECK_STEPS, agree))
+    busy = busy_window(torch, hb, "sparse fleet", opt, SLICE_PROFILE_STEPS)
+    return {"launches": launches, "steps_per_s": rate, "reads": reads / READ_STEPS, "busy": busy}
+
+
+def resume_phase(torch, hb, resume):
+    """restore_state of the training state sparse_phase saved after
+    RESUME_AT steps of the SparseGPC Laplace run into a fresh model and
+    optimizer, then RESUME_STEPS steps: the objectives and parameters
+    within 1e-6 relative of the run that went on from the save; prints
+    whether they are bitwise equal."""
+    model = sparse_model(hb, sparse_data(SPARSE_N), "gpc")
+    opt = model.log_marginal_laplace().compile(learning_rate=0.05)
+    opt.restore_state(RESUME_PATH)
+    check(opt.global_step == RESUME_AT, "restored global_step %d" % opt.global_step)
+    hist, _, _ = run_path(torch, hb, opt, RESUME_STEPS)
+    h_rel = float(np.abs(hist - resume["hist"]).max() / np.abs(resume["hist"]).max())
+    p_rel = max(float(((opt._trainable[k] - v).abs().max() / v.abs().max()).item())
+                for k, v in resume["params"].items())
+    bitwise = bool(np.array_equal(hist, resume["hist"])) and all(
+        torch.equal(opt._trainable[k], v) for k, v in resume["params"].items())
+    check(h_rel <= 1e-6 and p_rel <= 1e-6,
+          "resume: objective rel %g, parameters rel %g after %d steps" % (h_rel, p_rel, RESUME_STEPS))
+    print("resume: SparseGPC laplace n=%d m=%d save_state after %d steps, restore_state into a "
+          "fresh optimizer, %d steps each way: objective max rel %.3g parameters max rel %.3g "
+          "bitwise_equal=%s" % (SPARSE_N, SPARSE_M, RESUME_AT, RESUME_STEPS, h_rel, p_rel, bitwise))
+
+
 def all_counters():
     from henbun_tpu_torch.ops import cuda_chol, cuda_wide
 
@@ -1686,6 +2108,18 @@ def main():
     t0 = time.perf_counter()
     marginal = marginal_phase(torch, hb)
     print("exact-gram phase: %.1f s" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    ep_fleets = ep_fleet_phase(torch, hb)
+    print("ep fleet phase: %.1f s" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    sparse = sparse_phase(torch, hb)
+    print("sparse evidence phase: %.1f s" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    sparse_fleet = sparse_fleet_phase(torch, hb)
+    print("sparse fleet phase: %.1f s" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    resume_phase(torch, hb, sparse["SparseGPC laplace"]["resume"])
+    print("resume phase: %.1f s" % (time.perf_counter() - t0))
 
     # launches: the Laplace fleet's path run for K1-K3 (every one of them
     # runs on it; the GPR path's K1 and K2 counts are on its own line
@@ -1740,6 +2174,19 @@ def main():
              ", ".join("%s=%.1f" % (k, v["steps_per_s"]) for k, v in svgp.items()),
              ng_fleet["steps_per_s"],
              ", ".join("%s=%.1f" % (k, v["steps_per_s"]) for k, v in amortized.items())))
+    print("ep and sparse evidence: launches a step %s; sparse fleet %dx%dx%d K1=%.2f K2=%.2f "
+          "K3=%.2f; host reads a step %s, sparse fleet %.1f; steps_per_s %s"
+          % ("; ".join("%s fleet K1=%.2f K2=%.2f" % (k, v["launches"]["K1"] / v["steps"],
+                                                     v["launches"]["K2"] / v["steps"])
+                       for k, v in ep_fleets.items()),
+             FLEET, SPARSE_FLEET_N, SPARSE_FLEET_M,
+             sparse_fleet["launches"]["K1"] / SPARSE_FLEET_STEPS,
+             sparse_fleet["launches"]["K2"] / SPARSE_FLEET_STEPS,
+             sparse_fleet["launches"]["K3"] / SPARSE_FLEET_STEPS,
+             ", ".join("%s=%.1f" % (k, v["reads"]) for k, v in {**ep_fleets, **sparse}.items()),
+             sparse_fleet["reads"],
+             ", ".join("%s=%.2f" % (k, v["steps_per_s"])
+                       for k, v in {**ep_fleets, **sparse, "sparse fleet": sparse_fleet}.items())))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,9 @@ Cholesky factorizations and triangular solves run through hand-written CUDA
 kernels (``ops/cuda_chol.py``, ``ops/cuda_solve.py``), and the batched
 Laplace Newton loop through a third (``ops/cuda_newton.py``). The natural
 gradient (``optimizers.py``) factors and inverts its Gaussians through the
-first two.
+first two, and so do the sweeps of a fleet's expectation propagation
+(``inference/ep.py``). Parameter checkpoints (``Parameterized.save``) are
+the JAX package's ``.npz`` format, readable by either package.
 
 A Model lives on ``[cuda] device`` unless the caller names a device; with
 no CUDA device, pass ``device="cpu"``.
@@ -39,6 +41,7 @@ from . import gp
 from . import optimizers
 from . import utils
 from . import batched
+from . import scoping
 from .batched import BatchedOptimizer
 from . import inference
 from . import models

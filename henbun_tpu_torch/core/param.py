@@ -25,6 +25,7 @@ import torch
 
 from .. import transforms
 from .._settings import settings, np_float
+from ..scoping import NameScoped
 from . import context as _ctx
 from . import rng as _rng
 
@@ -318,13 +319,7 @@ class Parameterized(Parentable):
             and torch.autograd._profiler_enabled()
             and self.path_to(ctx.root) is not None
         ):
-            fn = o
-
-            def _scoped(*args, _fn=fn, _name=self.long_name + "." + key, **kw):
-                with torch.profiler.record_function(_name):
-                    return _fn(*args, **kw)
-
-            return _scoped
+            return NameScoped(self.long_name + "." + key)(o)
         return o
 
     def __setattr__(self, key, value):
@@ -496,16 +491,16 @@ class Parameterized(Parentable):
 
     # --- checkpointing -----------------------------------------------------
     def save(self, save_path=None, global_step=None):
-        raise NotImplementedError(
-            "Parameterized.save waits for the checkpoint slice of the port "
-            "(ROADMAP queue 1, item 17)."
-        )
+        """Save the subtree's global parameters, keyed by long_name, as an
+        .npz archive (the JAX package's format). Returns the path written."""
+        from ..utils import checkpoint as _chk
+
+        return _chk.save(self, save_path, global_step=global_step)
 
     def restore(self, save_path=None):
-        raise NotImplementedError(
-            "Parameterized.restore waits for the checkpoint slice of the "
-            "port (ROADMAP queue 1, item 17)."
-        )
+        from ..utils import checkpoint as _chk
+
+        _chk.restore(self, save_path)
 
 
 class ParamList(Parameterized):

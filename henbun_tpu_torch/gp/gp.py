@@ -5,9 +5,13 @@ u @ (Lm^-1 Kmn) plus an 'additional covariance' correction in
 
 Correction noise comes from the trace context's tagged noise, so a caller
 can inject it like any node's noise.
+
+``z_min_spacing`` and ``z_repulsion`` size and apply the inducing-point
+collision barrier of the evidence families (``models/_zguard.py``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core import context as _ctx
@@ -153,3 +157,42 @@ class SparseGP(GP):
             return self.kern.Kdiag(x) - torch.sum(torch.square(LnT), -2)
         Knn = self.kern.K(x)
         return Knn - matmul_hp(LnT.mT, LnT)
+
+
+def z_min_spacing(z):
+    """Smallest positive pairwise Euclidean distance among inducing points
+    (host-side numpy; used at setUp time to size the repulsion barrier).
+    Returns 0.0 if every pair coincides."""
+    if isinstance(z, torch.Tensor):
+        z = z.detach().cpu().numpy()
+    z = np.asarray(z, np.float64)
+    d2 = np.sum((z[:, None, :] - z[None, :, :]) ** 2, axis=-1)
+    iu = np.triu_indices(len(z), k=1)
+    vals = d2[iu]
+    pos = vals[vals > 0]
+    return float(np.sqrt(pos.min())) if pos.size else 0.0
+
+
+def z_repulsion(z, d0, weight):
+    """Inducing-point collision barrier: exactly zero while every pairwise
+    distance exceeds d0, growing like weight * (d0/d - 1)^2 -> infinity as
+    a pair approaches coincidence.
+
+    Evidence training of z drives neighbouring inducing points into
+    collision (a coincident z makes Kmm rank-deficient past any jitter
+    rescue). A colliding pair adds no capacity, so an inverse-square hinge
+    costs nothing when inactive and halts any finite attraction at a
+    spacing O(d0). C^1 at the hinge; subtract from the evidence objective.
+
+    z: [m, d]; d0: barrier onset distance (a float, typically half the
+    initial min spacing); weight: barrier scale (typically n_data: evidence
+    gradients are O(n))."""
+    m = z.shape[-2]
+    d2 = torch.sum(torch.square(z[..., :, None, :] - z[..., None, :, :]), dim=-1)
+    # self-pairs: pushed beyond the hinge so they contribute exactly zero
+    d2 = d2 + torch.eye(m, dtype=z.dtype, device=z.device) * (4.0 * d0 * d0)
+    # the floor keeps the sqrt gradient finite at an exactly coincident
+    # pair (the barrier there is ~weight/floor: effectively infinite)
+    r = torch.sqrt(d2 / (d0 * d0) + 1e-12)
+    pen = torch.square(torch.relu(1.0 / r - 1.0))
+    return 0.5 * weight * torch.sum(pen)  # each pair appears twice

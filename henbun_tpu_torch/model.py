@@ -372,16 +372,48 @@ class Optimizer:
 
     # --------------------------------------------------------------- resume
     def save_state(self, path):
-        raise NotImplementedError(
-            "Optimizer.save_state waits for the checkpoint slice of the port "
-            "(ROADMAP queue 1, item 17)."
+        """Checkpoint the full training state for an exact resume: the
+        trainable tensors, the optimizer's ``state_dict()`` (the natural
+        gradient's too: its ``rest`` state and adaptive scales), the global
+        step and the model's generator state. A ``torch.save`` file, which
+        only this package reads (optax and torch.optim states differ);
+        parameters alone travel between the packages as
+        ``Parameterized.save``'s npz."""
+        self._require_compiled()
+        self._refresh_params()  # staged assignments belong in the checkpoint
+        torch.save(
+            {
+                "trainable": {k: v.detach().cpu().clone() for k, v in self._trainable.items()},
+                "opt_state": _to_host(self.torch_optimizer.state_dict()),
+                "global_step": int(self.global_step),
+                "generator": self.model.generator.get_state(),
+            },
+            path,
         )
 
     def restore_state(self, path):
-        raise NotImplementedError(
-            "Optimizer.restore_state waits for the checkpoint slice of the "
-            "port (ROADMAP queue 1, item 17)."
-        )
+        """Inverse of :meth:`save_state`: resuming a run after this produces
+        the exact step sequence the uninterrupted run would have (same
+        parameters, optimizer state and generator stream)."""
+        self._require_compiled()
+        # consume any pending staged assignments now, onto the pre-restore
+        # values they targeted; otherwise the next _refresh_params would
+        # apply them over the restored parameters
+        self._refresh_params()
+        st = torch.load(path, map_location="cpu", weights_only=True)
+        if set(st["trainable"]) != set(self._trainable):
+            raise ValueError(
+                "checkpoint holds %r, this optimizer trains %r"
+                % (sorted(st["trainable"]), sorted(self._trainable))
+            )
+        with torch.no_grad():
+            for k, v in st["trainable"].items():
+                self._trainable[k].copy_(v)
+        self.torch_optimizer.load_state_dict(st["opt_state"])
+        self.global_step = int(st["global_step"])
+        self.model.generator.set_state(st["generator"])
+        self._commit_params(self._trainable)
+        return self
 
     def _refresh_params(self):
         """Pick up any staged assignments made since the last call: their

@@ -1,1 +1,1 @@
-from . import profiling
+from . import checkpoint, profiling

@@ -154,12 +154,44 @@ def test_wide_solve_tile_width_divides_m_and_fills_the_grid():
     assert [cuda_wide.tile_cols(m) for m in (128, 256, 3968, 8192)] == [16, 16, 32, 64]
 
 
-def test_checkpoints_wait_for_their_slice():
-    opt = _tiny_gpr(seed=0, device="cpu").ELBO_gaussian().compile()
-    with pytest.raises(NotImplementedError, match="item 17"):
-        opt.save_state("x")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        opt.restore_state("x")
+def _profiled_names(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, {e.name for e in prof.events()}
+
+
+def test_name_scoped_keeps_values_and_gradients_and_names_the_trace():
+    """scoping.NameScoped (jax.named_scope's counterpart): the wrapped
+    function's result and gradient are unchanged, its name survives, and
+    the scope is a range in a CPU torch.profiler trace."""
+    from henbun_tpu_torch.scoping import NameScoped
+
+    def f(x):
+        return torch.sum(x * x + 2.0 * x)
+
+    g = NameScoped("my.scope")(f)
+    assert g.__name__ == "f"
+    x = torch.tensor([1.0, -3.0, 0.5], requires_grad=True)
+    (out, names) = _profiled_names(lambda: g(x))
+    assert out.item() == f(x).item()
+    assert torch.equal(torch.autograd.grad(out, x)[0], torch.autograd.grad(f(x), x)[0])
+    assert "my.scope" in names
+
+
+def test_scoped_keys_wrap_in_a_profiled_evaluation():
+    """A kernel's scoped keys (K, Kdiag, Cholesky) compute as before
+    inside an evaluation, and under the profiler each call is a range
+    named by its long_name."""
+    m = thb.Model(seed=0, device="cpu")
+    m.kern = thb.gp.kernels.UnitRBF()
+    m.initialize()
+    X = torch.linspace(0, 1, 5)[:, None]
+    K, names = _profiled_names(lambda: m.run(lambda mm: mm.kern.K(X)))
+    assert torch.allclose(torch.diagonal(K), torch.ones(5), atol=1e-5)
+    assert "model.kern.K" in names
+    assert torch.equal(K, m.run(lambda mm: mm.kern.K(X)))
 
 
 def test_params_from_jax_stacked_and_set_param_dict():
