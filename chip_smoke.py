@@ -17,13 +17,13 @@ Run from the root of a checkout. Phases, each of which fails the run:
    small shapes is the host's dispatch floor) and the device time per
    call (torch.profiler, device_ms);
 4. GPR path: trains the 16-model GPR fleet (GaussianProcess.ipynb, n = 40,
-   fullrank q, Adam 0.01) through BatchedOptimizer for 1,000 steps in
+   fullrank q, Adam 0.01) through BatchedOptimizer for 500 steps in
    chunks of 200, counting kernel launches; then holds 20 steps against
    the same fleet with use_kernels off under the same injected noise, and
    the fleet's objective on the card against the CPU's;
 5. Laplace path: trains 16 robust GPRs on their Laplace evidence
    (log_marginal_laplace_student, benchmarks/laplace_bench.py's data,
-   n = 40, Adam 0.02) for 1,000 steps in chunks of 200, counting K1, K2
+   n = 40, Adam 0.02) for 500 steps in chunks of 200, counting K1, K2
    and K3 launches, and 16 GPCs (log_marginal_laplace, n = 60, Adam 0.05)
    for 200 steps; each fit's grad_norm must end below 1. Then, for both
    fleets, 20 steps with the kernels against 20 with use_kernels off and
@@ -45,11 +45,11 @@ Run from the root of a checkout. Phases, each of which fails the run:
 
 10. amortized path (BASELINE config 3's width): AmortizedRegression
    (d_z = 4, hidden = 64) on 1e6 synthetic rows kept on the card, Adam
-   0.003, minibatches of 1,024: 2,000 steps with diagonal locals, 500 with
+   0.003, minibatches of 1,024: 1,000 steps with diagonal locals, 500 with
    fullrank_packed ones; the ELBO card vs CPU at the same weights, rows
    and noise; a traced window each;
 11. SVGP path (benchmarks/svgp_bench.py's width: n = 1e6, m = 128,
-   minibatch 1,024, block mode): 500 steps each of the MC ELBO with Adam,
+   minibatch 1,024, block mode): 250 steps each of the MC ELBO with Adam,
    the analytic ELBO with natural_gradient(1.0) and the classification
    quadrature ELBO with natural_gradient(0.1), K1 and K2 launches a step
    counted; for the natural-gradient pairings 20 steps with the kernels
@@ -59,23 +59,54 @@ Run from the root of a checkout. Phases, each of which fails the run:
    natural_gradient(0.2) (n = 40, the Laplace fleet's data), 200 steps,
    launches counted, 20 steps kernels on vs off;
 13. EP fleets: 16 robust GPRs on log_marginal_ep_student (n = 40, Adam
-   0.02, 200 steps) and 16 GPCs on log_marginal_ep (n = 60, Adam 0.05,
+   0.02, 100 steps) and 16 GPCs on log_marginal_ep (n = 60, Adam 0.05,
    100 steps): K1 and K2 launches and host reads a step, ep_delta, 20
    steps kernels on vs off, card vs CPU evidence and gradient, steps/s
    with the kernels on and off;
 14. sparse evidence at n = 1e5, m = 128, full batch
-   (benchmarks/families_bench.py's rows): SparseGPC Laplace (200 steps)
-   and EP (100), SparseGPRobust Laplace (200, 4% gross outliers) and
-   unrolled EP (30), SparseGPC with train_z (100); card vs CPU at the
+   (benchmarks/families_bench.py's rows): SparseGPC Laplace (100 steps)
+   and EP (50), SparseGPRobust Laplace (200, 4% gross outliers) and
+   unrolled EP (15), SparseGPC with train_z (50); card vs CPU at the
    initial weights, the JAX tests' accuracy gates, steps/s, host reads a
    step, a traced window, peak memory;
 15. sparse fleet: 16 SparseGPCs at n = 96, m = 24 (Laplace, 100 steps),
    K3 once a step, 20 steps kernels on vs off;
 16. resume: save_state after 50 steps of phase 14's SparseGPC Laplace run,
-   restore_state into a fresh optimizer, 20 steps each way.
+   restore_state into a fresh optimizer, 20 steps each way;
+17. multiclass (benchmarks/multiclass_scale_bench.py): SparseGPMulticlass at
+   n = 1e5, m = 128, K = 3, full batch, Adam 0.05, 200 steps; the evidence
+   and gradient card vs CPU at the initial weights (each gradient leaf
+   held to the card's float64), the CholQR2 logdet and
+   an H-solve against float64, the grid probabilities against the
+   generator, steps/s, host reads, a traced window, peak memory; with
+   k_var = 100 whether CholQR2's first pass goes indefinite at shift 1e-4
+   and 1e-6 (measured, not gated);
+18. samplers (BASELINE config 4, benchmarks/ess_bench.py): HMC, ChEES and
+   NUTS on BNN(hidden=16), 49 dimensions, 256 chains, 200 + 200
+   iterations: bulk ESS/s, accept, leapfrogs, device operations and host
+   reads an iteration; each sampler on a 50-dim correlated Gaussian, its
+   means and covariance held to the JAX tests' limits and to 6 of this
+   run's Monte Carlo standard errors;
+19. Bayesian hyperparameters (examples/bayes_hypers_sparse.py): ChEES over
+   SparseGPC.log_posterior at n = 2e4, m = 32, 8 chains, 50 + 50 draws
+   through sample_posterior; K1 and K2 launches a gradient evaluation and
+   an iteration, the vmapped log_prob and gradient card vs CPU and kernels
+   on vs off, each gradient leaf held to the card's float64;
+20. SMC (BASELINE config 5, benchmarks/smc_bench.py): 8 x 8 tomography,
+   8,192 particles, 5 moves of 8 leapfrogs: final beta, the posterior
+   mean against the analytic one, stages/s, log-evidence against log Z.
+
+Cut to keep the whole run near 600 s once phases 17-20 came (the step
+counts before in brackets; every width is the same): phases 4 and 5 run
+500 steps (1,000), the amortized path 1,000 diagonal steps (2,000), the
+SVGP pairings 250 steps (500), the EP GPR fleet 100 (200), and the sparse
+runs SparseGPC Laplace 100 (200), EP 50 (100), unrolled robust EP 15
+(30), train_z 50 (100).
 
 The kernel phase also checks K1 and K2 at the natural gradient's shapes
-(B = 1 and 3 at n = 128, B = 48 at n = 40; K2 as L X = I), and holds K4
+(B = 1 and 3 at n = 128, B = 48 at n = 40; K2 as L X = I) and at the
+Bayesian-hyperparameter path's (K1 at B = 8, n = 32; K2 at n = 32 against
+1 column both ways and 32 transposed), and holds K4
 and K5 (cholesky128, cholesky128_batched:
 K1's kernel through their own entries) and K6 (the wide solves) against
 their plain versions; no training path launches them.
@@ -94,12 +125,12 @@ import numpy as np
 
 FLEET = 16
 N = 40
-STEPS = 1000
+STEPS = 500
 CHUNK = 200
 CHECK_STEPS = 20
 PROFILE_STEPS = 50
 SINGLE_STEPS = 300
-LAPLACE_STEPS = 1000
+LAPLACE_STEPS = 500
 GPC_N = 60
 GPC_STEPS = 200
 RATE_STEPS = 100           # Laplace fleet steps/s, kernels on and off
@@ -107,7 +138,7 @@ LAPLACE_PROFILE_STEPS = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 KERNEL_ATOL = 1e-4         # kernel vs plain on O(1) factors: float32, FMA vs mul+sub
-PROFILE_TRIES = 3          # device_ms: traces of one window before it gives up
+PROFILE_TRIES = 6          # device_ms: traces of one window before it gives up
 # K3 vs plain on the Newton mode (the tolerances of test_fused_newton.py):
 # float32 products and factorizations in another order through 15
 # dependent iterations; the Bernoulli mode is flatter
@@ -132,14 +163,14 @@ BACKWARD_STEPS = 10        # evidence steps timed per turn, Murray vs native
 NATGRAD_SHAPES = ((1, 128), (3, 128), (3 * FLEET, N))
 # amortized SVI at BASELINE config 3's width (examples/amortized_svi.py)
 AMORT_N = 1_000_000
-AMORT_STEPS = {"diagonal": 2000, "fullrank_packed": 500}
+AMORT_STEPS = {"diagonal": 1000, "fullrank_packed": 500}
 MINIBATCH = 1024
 SLICE_CHUNK = 500          # steps between host syncs on the new paths
 SLICE_PROFILE_STEPS = 20
 # SVGP at benchmarks/svgp_bench.py's width
 SVGP_N = 1_000_000
 SVGP_M = 128
-SVGP_STEPS = 500
+SVGP_STEPS = 250
 NATGRAD_FLEET_STEPS = 200
 # a float32 path's deviation from float64, kernels against library, at
 # most this factor (measured at m = 128: objective 1.44x and 1.56x the
@@ -162,7 +193,7 @@ STUDENT_EP_F32_TOL = 5e-4
 SPARSE_LAPLACE_F32_TOL = 1e-2
 SPARSE_EP_F32_TOL = 1e-1
 # EP fleets (benchmarks/laplace_bench.py --engine ep, tests/test_ep.py:208)
-EP_GPR_STEPS = 200
+EP_GPR_STEPS = 100
 EP_GPC_STEPS = 100
 EP_PROFILE_STEPS = 2       # a traced EP fleet step holds 3,000-7,000 device operations
 READ_STEPS = 3             # steps counted under torch.cuda's sync debug mode
@@ -443,10 +474,64 @@ def kernel_phase(torch, hb):
                   % (B, n, m, transpose, err, row["ms"], row["device_ms"], row["plain_ms"],
                      row["library_ms"], row["library_device_ms"]))
     natgrad_kernel_checks(torch, errs, times)
+    bayes_kernel_checks(torch, errs, times)
     newton_checks(torch, errs, times)
     small_chol_checks(torch, errs, times)
     wide_checks(torch, errs, times)
     return errs, times
+
+
+def k1_row(torch, errs, A, what):
+    """K1 on the SPD batch A against its plain version (error recorded in
+    errs), with its and cholesky_ex's wall and device times and its bound."""
+    from henbun_tpu_torch.ops import cuda_chol
+
+    B, n = A.shape[0], A.shape[-1]
+    L = cuda_chol.cholesky128_vbatched(A)
+    torch.cuda.synchronize()
+    err = max_err(torch, L, cuda_chol.cholesky128_plain(A))
+    check(err <= KERNEL_ATOL, "K1 %s B=%d n=%d: max error %g" % (what, B, n, err))
+    errs["K1"] = max(errs["K1"], err)
+    row = {"ms": time_ms(torch, lambda: cuda_chol.cholesky128_vbatched(A)),
+           "plain_ms": time_ms(torch, lambda: cuda_chol.cholesky128_plain(A), iters=3, warmup=1),
+           "library_ms": time_ms(torch, lambda: torch.linalg.cholesky_ex(A)), "err": err}
+    row["device_ms"], row["library_device_ms"] = device_ms(
+        torch, lambda: cuda_chol.cholesky128_vbatched(A), "chol128",
+        lambda: torch.linalg.cholesky_ex(A))
+    row["bound_ms"], row["bound_by"] = bound(*chol_cost(B, n))
+    return row
+
+
+def k2_row(torch, errs, Lf, R, transpose, what):
+    """K2 on (Lf, R) against its plain version (error recorded in errs),
+    with its and solve_triangular's wall and device times and its bound."""
+    from henbun_tpu_torch.ops import cuda_solve
+
+    B, n, m = R.shape
+    X = cuda_solve.tri_solve128_vbatched(Lf, R, transpose)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(X).all()), "K2 %s read the NaN triangle" % what)
+    err = max_err(torch, X, cuda_solve.tri_solve128_plain(Lf, R, transpose))
+    check(err <= KERNEL_ATOL, "K2 %s B=%d n=%d m=%d: max error %g" % (what, B, n, m, err))
+    errs["K2"] = max(errs["K2"], err)
+    Lt = torch.tril(torch.nan_to_num(Lf))
+    library = lambda: torch.linalg.solve_triangular(Lt.mT if transpose else Lt, R,
+                                                    upper=transpose)
+    row = {"ms": time_ms(torch, lambda: cuda_solve.tri_solve128_vbatched(Lf, R, transpose)),
+           "plain_ms": time_ms(torch, lambda: cuda_solve.tri_solve128_plain(Lf, R, transpose),
+                               iters=3, warmup=1),
+           "library_ms": time_ms(torch, library), "err": err}
+    row["device_ms"], row["library_device_ms"] = device_ms(
+        torch, lambda: cuda_solve.tri_solve128_vbatched(Lf, R, transpose), "trisolve128", library)
+    row["bound_ms"], row["bound_by"] = bound(*solve_cost(B, n, m))
+    return row
+
+
+def print_row(label, r):
+    print("%s max_abs_err=%.3g kernel_ms=%.4f device_ms=%.4f plain_ms=%.4f library_ms=%.4f "
+          "library_device_ms=%.4f bound_ms=%.3g (%s)"
+          % (label, r["err"], r["ms"], r["device_ms"], r["plain_ms"], r["library_ms"],
+             r["library_device_ms"], r["bound_ms"], r["bound_by"]))
 
 
 def natgrad_kernel_checks(torch, errs, times):
@@ -454,48 +539,34 @@ def natgrad_kernel_checks(torch, errs, times):
     SPD batches, K2 as L X = I (the inverses natgrad takes, no
     transpose), each against its plain version, with cholesky_ex's and
     solve_triangular's device times beside them."""
-    from henbun_tpu_torch.ops import cuda_chol, cuda_solve
-
     for B, n in NATGRAD_SHAPES:
-        A = spd(torch, B, n, seed=B * 7 + n, device="cuda")
-        L = cuda_chol.cholesky128_vbatched(A)
-        torch.cuda.synchronize()
-        err = max_err(torch, L, cuda_chol.cholesky128_plain(A))
-        check(err <= KERNEL_ATOL, "K1 natgrad B=%d n=%d: max error %g" % (B, n, err))
-        errs["K1"] = max(errs["K1"], err)
-        row = {"ms": time_ms(torch, lambda: cuda_chol.cholesky128_vbatched(A)),
-               "plain_ms": time_ms(torch, lambda: cuda_chol.cholesky128_plain(A), iters=3,
-                                   warmup=1),
-               "library_ms": time_ms(torch, lambda: torch.linalg.cholesky_ex(A))}
-        row["device_ms"], row["library_device_ms"] = device_ms(
-            torch, lambda: cuda_chol.cholesky128_vbatched(A), "chol128",
-            lambda: torch.linalg.cholesky_ex(A))
-        row["bound_ms"], row["bound_by"] = bound(*chol_cost(B, n))
+        row = k1_row(torch, errs, spd(torch, B, n, seed=B * 7 + n, device="cuda"), "natgrad")
         times[("K1", B, n)] = row
         Lf = lower(torch, B, n, seed=B * 11 + n, device="cuda")
         eye = torch.eye(n, device="cuda").expand(B, n, n).contiguous()
-        X = cuda_solve.tri_solve128_vbatched(Lf, eye, False)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(X).all()), "K2 natgrad read the NaN triangle")
-        err2 = max_err(torch, X, cuda_solve.tri_solve128_plain(Lf, eye, False))
-        check(err2 <= KERNEL_ATOL, "K2 natgrad B=%d n=%d: max error %g" % (B, n, err2))
-        errs["K2"] = max(errs["K2"], err2)
-        Lt = torch.tril(torch.nan_to_num(Lf))
-        row2 = {"ms": time_ms(torch, lambda: cuda_solve.tri_solve128_vbatched(Lf, eye, False)),
-                "plain_ms": time_ms(torch, lambda: cuda_solve.tri_solve128_plain(Lf, eye, False),
-                                    iters=3, warmup=1),
-                "library_ms": time_ms(
-                    torch, lambda: torch.linalg.solve_triangular(Lt, eye, upper=False))}
-        row2["device_ms"], row2["library_device_ms"] = device_ms(
-            torch, lambda: cuda_solve.tri_solve128_vbatched(Lf, eye, False), "trisolve128",
-            lambda: torch.linalg.solve_triangular(Lt, eye, upper=False))
-        row2["bound_ms"], row2["bound_by"] = bound(*solve_cost(B, n, n))
+        row2 = k2_row(torch, errs, Lf, eye, False, "natgrad")
         times[("K2", B, n, n, False, "eye")] = row2
-        for name, r, e in (("K1 cholesky", row, err), ("K2 tri_solve L X = I", row2, err2)):
-            print("natgrad shape %s B=%d n=%d max_abs_err=%.3g kernel_ms=%.4f device_ms=%.4f "
-                  "plain_ms=%.4f library_ms=%.4f library_device_ms=%.4f bound_ms=%.3g (%s)"
-                  % (name, B, n, e, r["ms"], r["device_ms"], r["plain_ms"], r["library_ms"],
-                     r["library_device_ms"], r["bound_ms"], r["bound_by"]))
+        print_row("natgrad shape K1 cholesky B=%d n=%d" % (B, n), row)
+        print_row("natgrad shape K2 tri_solve L X = I B=%d n=%d" % (B, n), row2)
+
+
+def bayes_kernel_checks(torch, errs, times):
+    """K1 and K2 at the Bayesian-hyperparameter path's shapes (a
+    BAYES_CHAINS-chain gradient evaluation of SparseGPC at m = BAYES_M):
+    K1 on [8, 32, 32] (each Newton factor, the IFT's, the evidence's and
+    Kmm's), K2 on [8, 32, 1] both ways (the IFT's two solves) and on
+    [8, 32, 32] transposed (the Murray backward)."""
+    B, n = BAYES_CHAINS, BAYES_M
+    times[("K1", B, n)] = row = k1_row(torch, errs, spd(torch, B, n, seed=77, device="cuda"),
+                                       "bayes")
+    print_row("bayes shape K1 cholesky B=%d n=%d" % (B, n), row)
+    Lf = lower(torch, B, n, seed=78, device="cuda")
+    for m, transpose in ((1, False), (1, True), (n, True)):
+        R = torch.tensor(np.random.default_rng(m).normal(size=(B, n, m)).astype(np.float32),
+                         device="cuda")
+        times[("K2", B, n, m, transpose)] = row = k2_row(torch, errs, Lf, R, transpose, "bayes")
+        print_row("bayes shape K2 tri_solve B=%d n=%d m=%d transpose=%s" % (B, n, m, transpose),
+                  row)
 
 
 def late_pivot_checks(torch, errs, key, entry, B, n=128, k=100):
@@ -1321,7 +1392,7 @@ def amortized_phase(torch, hb):
     """Amortized SVI at BASELINE config 3's width: AmortizedRegression
     (d_z = 4, hidden = 64) on make_synthetic_regression(n = 1e6, d_x = 8),
     the data whole on the card, Adam 0.003, minibatches of 1,024 rows;
-    2,000 steps with diagonal locals and 500 with fullrank_packed ones.
+    1,000 steps with diagonal locals and 500 with fullrank_packed ones.
     The ELBO must stay finite and its mean over the last 100 steps (per
     data point) exceed the first 100's; the objective on the card must
     match the CPU's (rtol 1e-4) at the same weights, rows and noise. No
@@ -1394,7 +1465,7 @@ def svgp_model(hb, data, family, analytic_kl, device=None):
 
 def svgp_phase(torch, hb):
     """The SVGP families at svgp_bench.py's width (n = 1e6, m = 128,
-    minibatch 1,024, block mode), 500 steps of each pairing in
+    minibatch 1,024, block mode), SVGP_STEPS steps of each pairing in
     SVGP_PAIRINGS: objective finite and rising, K1 and K2 launches a step
     counted; then natgrad_checks on the two natural-gradient pairings."""
     data = svgp_data(SVGP_N)
@@ -1734,39 +1805,66 @@ def leaf_rel(g, ref):
     return {k: float(np.abs(g[k] - ref[k]).max() / np.abs(ref[k]).max()) for k in ref}
 
 
-def held_to_cpu(torch, hb, label, card_opt, opt_fn, f32_tol=1e-4):
-    """An objective and its gradients on the card against the CPU's from the
-    same weights: rtol 1e-4 of the value and of each leaf's largest entry.
-    A leaf whose gradient misses that is arbitrated by the card's float64
-    evaluation (the same code on cuSOLVER and cuBLAS in float64): where
-    float32 can hold the leaf to `f32_tol` (the CPU float32 path within it
-    of float64), the card's float32 gradient must too. opt_fn(device)
-    builds an Optimizer on `device` under the current float type. Returns
-    a text of the numbers."""
-    v_card, g_card = value_and_grad(card_opt)
-    t0 = time.perf_counter()
-    v_cpu, g_cpu = value_and_grad(opt_fn("cpu"))
-    cpu_s = time.perf_counter() - t0
-    rel = abs(v_card - v_cpu) / abs(v_cpu)
-    grel = leaf_rel(g_card, g_cpu)
-    check(rel <= 1e-4, "%s: card vs CPU objective %g / %g (rel %g)" % (label, v_card, v_cpu, rel))
-    text = "card vs CPU %.6f / %.6f rel=%.3g grad_rel %s (CPU %.1f s)" % (
-        v_card, v_cpu, rel, " ".join("%s=%.3g" % kv for kv in sorted(grel.items())), cpu_s)
+def held(torch, label, got, want, g64_fn, f32_tol=1e-4, f64_limits=None):
+    """Objective values and gradients on the card (`got`: (values, {leaf:
+    gradient}), numpy) against a reference's (`want`) at the same weights:
+    the values within 1e-4 of the reference's largest, each leaf within
+    1e-4 of its largest entry. g64_fn() gives the card's float64 gradients
+    (the same code on cuSOLVER and cuBLAS in float64), the arbiter of what
+    float32 can hold:
+      - f64_limits None: a leaf that misses 1e-4 is arbitrated. Where the
+        reference's float32 leaf is within `f32_tol` of float64, the card's
+        must be too;
+      - f64_limits {leaf: limit}: every leaf of the card is held to float64
+        at its limit, each limit set from that path's own readings, whether
+        or not it missed the reference.
+    Returns a text of the numbers."""
+    (v_card, g_card), (v_ref, g_ref) = got, want
+    v_card, v_ref = np.asarray(v_card, np.float64), np.asarray(v_ref, np.float64)
+    rel = float(np.abs(v_card - v_ref).max() / np.abs(v_ref).max())
+    grel = leaf_rel(g_card, g_ref)
+    check(rel <= 1e-4, "%s: objective %s / %s (rel %g)" % (label, v_card, v_ref, rel))
+    text = "%s: value %srel=%.3g grad_rel %s" % (
+        label, "%.6f / %.6f " % (v_card, v_ref) if v_ref.size == 1 else "", rel,
+        " ".join("%s=%.3g" % kv for kv in sorted(grel.items())))
     missed = [k for k, r in grel.items() if r > 1e-4]
-    if not missed:
+    if f64_limits is None and not missed:
         return text
-    cfg = hb.settings.get_settings()
-    cfg.dtypes.float_type = torch.float64
-    with hb.settings.temp_settings(cfg):
-        v64, g64 = value_and_grad(opt_fn("cuda"))
-    dev_card, dev_cpu = leaf_rel(g_card, g64), leaf_rel(g_cpu, g64)
-    for k in missed:
-        if dev_cpu[k] <= f32_tol:
-            check(dev_card[k] <= f32_tol, "%s: %s gradient card %g (CPU %g) from float64, "
-                  "tolerance %g" % (label, k, dev_card[k], dev_cpu[k], f32_tol))
-    return text + "; card float64 %.6f: float32 grad from float64 card %s cpu %s (tol %g)" % (
-        v64, " ".join("%s=%.3g" % kv for kv in sorted(dev_card.items())),
-        " ".join("%s=%.3g" % kv for kv in sorted(dev_cpu.items())), f32_tol)
+    g64 = g64_fn()
+    dev_card, dev_ref = leaf_rel(g_card, g64), leaf_rel(g_ref, g64)
+    if f64_limits is not None:
+        for k in g_ref:
+            check(dev_card[k] <= f64_limits[k], "%s: %s gradient %g from float64 (reference %g), "
+                  "limit %g" % (label, k, dev_card[k], dev_ref[k], f64_limits[k]))
+    else:
+        for k in missed:
+            if dev_ref[k] <= f32_tol:
+                check(dev_card[k] <= f32_tol, "%s: %s gradient card %g (reference %g) from "
+                      "float64, tolerance %g" % (label, k, dev_card[k], dev_ref[k], f32_tol))
+    return text + "; float32 grad from the card's float64: card %s reference %s (%s)" % (
+        " ".join("%s=%.3g" % kv for kv in sorted(dev_card.items())),
+        " ".join("%s=%.3g" % kv for kv in sorted(dev_ref.items())),
+        "tol %g" % f32_tol if f64_limits is None
+        else "limits " + " ".join("%s=%g" % kv for kv in sorted(f64_limits.items())))
+
+
+def held_to_cpu(torch, hb, label, card_opt, opt_fn, f32_tol=1e-4, f64_limits=None):
+    """held() of an Optimizer's objective and gradients on the card against
+    the CPU's from the same weights. opt_fn(device) builds the Optimizer on
+    `device` under the current float type."""
+    card = value_and_grad(card_opt)
+    t0 = time.perf_counter()
+    cpu = value_and_grad(opt_fn("cpu"))
+    cpu_s = time.perf_counter() - t0
+
+    def g64_fn():
+        cfg = hb.settings.get_settings()
+        cfg.dtypes.float_type = torch.float64
+        with hb.settings.temp_settings(cfg):
+            return value_and_grad(opt_fn("cuda"))[1]
+
+    return held(torch, label + " card vs CPU (CPU %.1f s)" % cpu_s, card, cpu, g64_fn,
+                f32_tol, f64_limits)
 
 
 def fleet_cpu_check(torch, hb, kind, on_card):
@@ -1853,11 +1951,11 @@ def sparse_data(n, seed=0):
 
 # name -> (family, objective, steps, model keywords)
 SPARSE_RUNS = {
-    "SparseGPC laplace": ("gpc", "log_marginal_laplace", 200, {}),
-    "SparseGPC ep": ("gpc", "log_marginal_ep", 100, {}),
+    "SparseGPC laplace": ("gpc", "log_marginal_laplace", 100, {}),
+    "SparseGPC ep": ("gpc", "log_marginal_ep", 50, {}),
     "SparseGPRobust laplace": ("robust", "log_marginal_laplace", 200, {}),
-    "SparseGPRobust ep (unrolled)": ("robust", "log_marginal_ep", 30, {}),
-    "SparseGPC laplace train_z": ("gpc", "log_marginal_laplace", 100, {"train_z": True}),
+    "SparseGPRobust ep (unrolled)": ("robust", "log_marginal_ep", 15, {}),
+    "SparseGPC laplace train_z": ("gpc", "log_marginal_laplace", 50, {"train_z": True}),
 }
 
 
@@ -2041,6 +2139,521 @@ def resume_phase(torch, hb, resume):
           "bitwise_equal=%s" % (SPARSE_N, SPARSE_M, RESUME_AT, RESUME_STEPS, h_rel, p_rel, bitwise))
 
 
+# ------------------------------- slice 8: the multiclass engine and the samplers
+MC_N, MC_M, MC_K = 100_000, 128, 3
+MC_STEPS = 200
+MC_PROFILE_STEPS = 3
+MC_GRID_GATE = 0.02        # mean |p - p_true| on the grid (test_multiclass_oracle.py)
+MC_KV_STRESS = 100.0       # n k_var = 1e7: the CholQR2 first-pass shift question
+SAMPLER_CHAINS = 256
+SAMPLER_ITERS = {"hmc": (200, 200), "chees": (200, 200), "nuts": (200, 200)}
+TRACE_ITERS = 2            # warmup and sampling iterations of a traced sampler call
+GAUSS_DIM = 50
+GAUSS_ITERS = (200, 200)
+# the JAX tests' limits on the largest |mean| and |np.cov - cov|
+# (tests/test_hmc.py:16, tests/test_chees.py:12, tests/test_nuts_smc.py:16)
+GAUSS_GATES = {"hmc": (0.15, 0.35), "chees": (0.12, 0.3), "nuts": (0.15, 0.35)}
+GAUSS_Z = 6.0              # and within this many of the run's Monte Carlo standard errors
+BAYES_N, BAYES_M, BAYES_CHAINS = 20_000, 32, 8
+BAYES_ITERS = (100, 100)   # the reference ran 300 + 300; cut to keep the phase under 90 s
+SMC_GRID, SMC_PARTICLES, SMC_NOISE = 8, 8192, 0.1
+SMC_MEAN_GATE = 0.005
+# the card's float32 gradient against its float64 one, a limit for each
+# leaf at 3.5-4.6x that path's reading (H100 80GB HBM3, 700 W; the CPU's
+# float32 reading in brackets): multiclass at n = 1e5, m = 128 lengthscale
+# 1.39e-3 (1.08e-3), k_var 1.09e-5 (1.86e-3); the Bayes path's 8 chains at
+# n = 2e4, m = 32 lengthscale 5.13e-4 (2.12e-4), k_var 5.73e-5 (2.86e-5).
+# A TF32 product (~1e-3 relative) anywhere on either path breaks k_var's
+MC_F64_LIMITS = {"gp.kern.lengthscales": 5e-3, "k_var": 5e-5}
+BAYES_F64_LIMITS = {"gp.kern.lengthscales": 2e-3, "k_var": 2e-4}
+
+
+def three_sines(x, K=MC_K):
+    """benchmarks/multiclass_scale_bench.py's class probabilities at x."""
+    F = np.stack([3.0 * np.sin(x), 2.0 * np.cos(0.7 * x), 1.5 * np.sin(1.3 * x + 1.0)][:K],
+                 axis=-1)
+    P = np.exp(F - F.max(axis=1, keepdims=True))
+    return P / P.sum(axis=1, keepdims=True)
+
+
+def multiclass_data(n):
+    """benchmarks/multiclass_scale_bench.py's rows: n sorted U[0, 6] inputs,
+    labels drawn from the three-sine softmax."""
+    rng = np.random.default_rng(0)
+    X = np.sort(rng.uniform(0, 6, (n, 1))).astype(np.float32)
+    P = three_sines(X[:, 0])
+    y = np.array([rng.choice(MC_K, p=p) for p in P], np.int32)[:, None]
+    return X, y
+
+
+def multiclass_model(hb, X, y, device=None):
+    hb.set_seed(0)
+    return hb.models.SparseGPMulticlass(seed=0, X=X, Y=y, num_classes=MC_K,
+                                        num_inducing=MC_M, device=device)
+
+
+def sqrt_factor_checks(torch, hb, model):
+    """The CholQR2 logdet and one H-solve at the model's mode against the
+    float64 evaluation of the same G on the card (the JAX package's
+    test_sqrt_factor.py gates: logdet rtol 1e-4, solve 1e-3)."""
+    from henbun_tpu_torch.inference import laplace as lap
+
+    G = model.run(lambda mm: lap._softmax_G(mm._A(mm.x), torch.softmax(mm.laplace().f_mode, -1)))
+    R = lap._sqrt_gram_factor(G)
+    ld = float(2.0 * torch.sum(torch.log(torch.diagonal(R))))
+    G64 = G.double()
+    H64 = torch.eye(G.shape[1], dtype=torch.float64, device=G.device) + G64.mT @ G64
+    ld64 = float(torch.linalg.slogdet(H64)[1])
+    b = torch.randn((G.shape[1], 1), generator=torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda")
+    x = lap._sqrt_solve(R, b).double()
+    x64 = torch.linalg.solve(H64, b.double())
+    solve_rel = float(torch.linalg.norm(x - x64) / torch.linalg.norm(x64))
+    check(abs(ld - ld64) <= 1e-4 * abs(ld64), "CholQR2 logdet %.6f vs float64 %.6f" % (ld, ld64))
+    check(solve_rel <= 1e-3, "CholQR2 H-solve rel err %g from float64" % solve_rel)
+    return "logdet f32=%.4f f64=%.4f abs_err=%.3g; H-solve rel err %.3g; lambda_max(H)=%.4g" % (
+        ld, ld64, abs(ld - ld64), solve_rel, float(torch.linalg.eigvalsh(H64)[-1]))
+
+
+def shift_question(torch, hb, X, y):
+    """Measure, do not switch: with k_var forced to MC_KV_STRESS (n k_var =
+    1e7), factor pass 1 of CholQR2 (I + G^T G, floored by the shift base,
+    plus the base as safe_cholesky's first jitter) at the mode with the
+    shift base 1e-4 (the engine's) and 1e-6: does the first factorization
+    fail (indefinite in float32), and how far is the full factor's logdet
+    from float64?"""
+    from henbun_tpu_torch.inference import laplace as lap
+
+    m = multiclass_model(hb, X, y, "cuda")
+    m.k_var.assign(np.array([MC_KV_STRESS], np.float32))
+    m.initialize()
+    res = m.run(lambda mm: mm.laplace())
+    G = m.run(lambda mm: lap._softmax_G(mm._A(mm.x), torch.softmax(res.f_mode, -1)))
+    G64 = G.double()
+    p = G.shape[1]
+    I = torch.eye(p, device=G.device)
+    H64 = torch.eye(p, dtype=torch.float64, device=G.device) + G64.mT @ G64
+    ld64 = float(torch.linalg.slogdet(H64)[1])
+    out = ["n*k_var=%.3g grad_norm=%.3g lambda_max(H)=%.4g" % (
+        MC_N * MC_KV_STRESS, float(res.grad_norm), float(torch.linalg.eigvalsh(H64)[-1]))]
+    for base in (1e-4, 1e-6):
+        B0 = lap._with_floor(I + G.mT @ G, base)
+        _, info = torch.linalg.cholesky_ex(B0 + base * I)
+        min_eig = float(torch.linalg.eigvalsh(B0.double())[0])
+        R = lap._sqrt_gram_factor(G, base)
+        ld = float(2.0 * torch.sum(torch.log(torch.diagonal(R))))
+        out.append("shift %g: pass1 %s (float32 min eig of floored B0 %.4g) logdet err %.3g"
+                   % (base, "INDEFINITE" if int(info) > 0 else "clean", min_eig, abs(ld - ld64)))
+    return "; ".join(out)
+
+
+def multiclass_phase(torch, hb):
+    """benchmarks/multiclass_scale_bench.py's workload: SparseGPMulticlass
+    at n = 1e5, m = 128, K = 3, full batch, Adam 0.05, MC_STEPS steps. The
+    evidence and its gradient at the initial weights card vs CPU
+    (held_to_cpu, every leaf held to float64 at MC_F64_LIMITS), the CholQR2
+    factor against float64, finite and rising
+    evidence, the grid probabilities against the generator, steps/s, host
+    reads a step, a traced window, peak memory, and the shift question."""
+    X, y = multiclass_data(MC_N)
+    model = multiclass_model(hb, X, y, "cuda")
+    opt = model.log_marginal_laplace().compile(learning_rate=0.05)
+    params = {k: v.detach().cpu() for k, v in model.param_dict().items()}
+
+    def opt_fn(device):
+        m = multiclass_model(hb, X, y, device)
+        m.set_param_dict({k: v.to(hb.settings.dtypes.float_type) for k, v in params.items()})
+        return m.log_marginal_laplace().compile(learning_rate=0.05)
+
+    t0 = time.perf_counter()
+    ref = held_to_cpu(torch, hb, "multiclass", opt, opt_fn, f64_limits=MC_F64_LIMITS)
+    check_s = time.perf_counter() - t0
+    factor = sqrt_factor_checks(torch, hb, model)
+    torch.cuda.reset_peak_memory_stats()
+    hist, seconds, launches = run_path(torch, hb, opt, MC_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    first, last = check_rises(hist / MC_N, "multiclass", 10)
+    grid = np.linspace(0.1, 5.9, 60, dtype=np.float32)[:, None]
+    p_hat = model.run(lambda mm: mm.predict_p(grid)).cpu().numpy()
+    err = float(np.abs(p_hat - three_sines(grid[:, 0])).mean())
+    check(np.isfinite(p_hat).all() and err < MC_GRID_GATE,
+          "multiclass: grid mean |p - p_true| %g, gate %g" % (err, MC_GRID_GATE))
+    gnorm = float(model.run(lambda mm: mm.laplace().grad_norm))
+    check(gnorm < 1, "multiclass: grad_norm %g after the fit" % gnorm)
+    _, reads = host_reads(torch, lambda: opt.optimize(maxiter=READ_STEPS))
+    kv = float(model.k_var.value[0])
+    print("multiclass path: n=%d m=%d K=%d steps=%d seconds=%.3f steps_per_s=%.3f "
+          "evidence_per_point first10=%.5f last10=%.5f k_var=%.4f n*k_var=%.3g grid_mean_abs_err=%.4f "
+          "(gate %g) grad_norm=%.3g host_reads_per_step=%.1f peak_mem_gib=%.2f launches %s; %s "
+          "(CPU check %.1f s); %s"
+          % (MC_N, MC_M, MC_K, MC_STEPS, seconds, MC_STEPS / seconds, first, last, kv, MC_N * kv,
+             err, MC_GRID_GATE, gnorm, reads / READ_STEPS, peak / 2**30,
+             " ".join("%s=%d" % kv_ for kv_ in sorted(launches.items())), ref, check_s, factor))
+    busy = busy_window(torch, hb, "multiclass", opt, MC_PROFILE_STEPS)
+    print("multiclass shift question: " + shift_question(torch, hb, X, y))
+    return {"steps_per_s": MC_STEPS / seconds, "busy": busy, "reads": reads / READ_STEPS,
+            "peak": peak}
+
+
+def traced_call(torch, fn):
+    """fn() under torch.profiler (card activity only): (device operations,
+    busy share of the wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = device_events(torch, prof)
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    return len(events), busy_ms / wall_ms
+
+
+def gaussian_target(torch, dim, device="cuda"):
+    """A correlated Gaussian: AR(1) correlation 0.5, scales 0.7 to 1.4."""
+    s = np.linspace(0.7, 1.4, dim)
+    idx = np.arange(dim)
+    cov = 0.5 ** np.abs(idx[:, None] - idx[None, :]) * s[:, None] * s[None, :]
+    prec = torch.tensor(np.linalg.inv(cov), dtype=torch.float32, device=device)
+    return (lambda t: -0.5 * t @ prec @ t), cov
+
+
+def gaussian_check(torch, name, mod, device="cuda"):
+    """Each sampler on a GAUSS_DIM-dim correlated Gaussian with
+    SAMPLER_CHAINS chains: the largest mean and covariance errors within the
+    JAX tests' limits (GAUSS_GATES, their atol on np.cov) and within
+    GAUSS_Z Monte Carlo standard errors of this run (each mean's from its
+    bulk ESS, each covariance entry's from the smallest bulk ESS of the
+    centred squares); accept rate in (0.5, 0.95)."""
+    from henbun_tpu_torch.inference import diagnostics
+
+    lp, cov = gaussian_target(torch, GAUSS_DIM, device)
+    g = torch.Generator(device=device).manual_seed(1)
+    init = torch.randn((SAMPLER_CHAINS, GAUSS_DIM), generator=g, device=device)
+    warm, samp = GAUSS_ITERS
+    res = mod.sample(lp, init, g, num_samples=samp, num_warmup=warm)
+    draws = res.samples.double().cpu().numpy()  # [samples, chains, dim]
+    x = draws.reshape(-1, GAUSS_DIM)
+    mean, emp = x.mean(0), np.cov(x.T)
+    ess = diagnostics.ess_bulk(draws)
+    ess2 = float(diagnostics.ess_bulk((draws - mean) ** 2).min())
+    var = np.diag(cov)
+    mean_z = float((np.abs(mean) / np.sqrt(var / ess)).max())
+    cov_z = float((np.abs(emp - cov) / np.sqrt((np.outer(var, var) + cov**2) / ess2)).max())
+    mean_err, cov_err = float(np.abs(mean).max()), float(np.abs(emp - cov).max())
+    mean_tol, cov_tol = GAUSS_GATES[name]
+    acc = float(res.accept_prob.mean())
+    check(mean_err < mean_tol and cov_err < cov_tol and max(mean_z, cov_z) < GAUSS_Z
+          and 0.5 < acc < 0.95,
+          "%s on the %d-dim Gaussian: max |mean| %g (tol %g, %.2f se), max |cov err| %g "
+          "(tol %g, %.2f se; gate %g se), accept %g"
+          % (name, GAUSS_DIM, mean_err, mean_tol, mean_z, cov_err, cov_tol, cov_z, GAUSS_Z, acc))
+    return ("gaussian%d max|mean|=%.4f (%.2f se) max|cov_err|=%.4f (%.2f se) max|var_err|=%.4f "
+            "ess_bulk min=%.0f second-moment ess min=%.0f accept=%.3f"
+            % (GAUSS_DIM, mean_err, mean_z, cov_err, cov_z, float(np.abs(np.diag(emp) - var).max()),
+               ess.min(), ess2, acc))
+
+
+def sampler_phase(torch, hb):
+    """BASELINE config 4 (benchmarks/ess_bench.py's workload): BNN(hidden=16)
+    on make_bnn_dataset(n=128), 49 dimensions, SAMPLER_CHAINS chains from
+    the initial weights plus 0.1 N(0, 1): HMC, ChEES and NUTS with
+    SAMPLER_ITERS warmup and sampling iterations each, the gradient
+    evaluations replayed from CUDA graphs (the target never synchronizes,
+    so logprob.CudaGraphed captures it; the graphed evaluation is first
+    held to the eager one and both are timed).
+    Min and median bulk ESS/s, accept rate, wall time, leapfrogs an
+    iteration (NUTS: the depths reached), device operations and host reads
+    an iteration (a short traced call and a short call in sync debug
+    mode); finite step size and trajectory; each sampler also on a
+    correlated Gaussian."""
+    from henbun_tpu_torch.inference import chees, diagnostics, hmc, logprob, nuts
+
+    hb.set_seed(0)
+    X, Y = hb.models.make_bnn_dataset(n=128)
+    model = hb.models.BNN(seed=0, X=X, Y=Y, hidden=16, device="cuda")
+    flp = logprob.make_log_prob(model, "log_posterior")
+    check(flp.dim == 49, "BNN(hidden=16) has %d dimensions, not 49" % flp.dim)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    init = flp.initial + 0.1 * torch.randn((SAMPLER_CHAINS, flp.dim), generator=g, device="cuda")
+    graphed = logprob.batched_value_and_grad(flp.log_prob)
+    eager = graphed.fn
+    diff = max(float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(graphed(init), eager(init)))
+    check(graphed.graphed, "the BNN target was not captured: it synchronizes the host")
+    check(diff <= 1e-5, "graphed BNN log_prob/gradient %g from the eager one" % diff)
+    eager_ms, graphed_ms = time_ms(torch, lambda: eager(init)), time_ms(torch, lambda: graphed(init))
+    _, eager_reads = host_reads(torch, lambda: eager(init))
+    print("sampler evaluation: BNN log_prob + gradient of %d chains eager %.3f ms (%d host reads) "
+          "graphed %.3f ms, graphed vs eager max rel %.3g"
+          % (SAMPLER_CHAINS, eager_ms, eager_reads, graphed_ms, diff))
+    out = {}
+    for name, mod in (("hmc", hmc), ("chees", chees), ("nuts", nuts)):
+        warm, samp = SAMPLER_ITERS[name]
+        replays = logprob.CudaGraphed.replays
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = mod.sample(flp.log_prob, init, g, num_samples=samp, num_warmup=warm)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        leapfrogs = (logprob.CudaGraphed.replays - replays - 1) / (warm + samp)
+        short = lambda: mod.sample(flp.log_prob, init, g, num_samples=TRACE_ITERS,
+                                   num_warmup=TRACE_ITERS)
+        ops, busy = traced_call(torch, short)
+        _, reads = host_reads(torch, short)
+        gauss = gaussian_check(torch, name, mod)
+        flat = res.samples.cpu().numpy()
+        check(np.isfinite(flat).all(), "%s: non-finite samples on the BNN" % name)
+        check(bool(torch.isfinite(res.step_size).all()), "%s: step size not finite" % name)
+        summ = diagnostics.summarize(flat, accept_prob=res.accept_prob.cpu().numpy())
+        ess = diagnostics.ess_bulk(flat)
+        ess_geyer = diagnostics.effective_sample_size(flat)
+        if name == "chees":
+            traj = float(res.trajectory_length)
+            check(np.isfinite(traj), "chees: trajectory length not finite")
+            extra = " step_size=%.4g trajectory_length=%.4g" % (float(res.step_size), traj)
+        elif name == "nuts":
+            steps = res.num_steps.cpu().numpy()
+            depth = np.ceil(np.log2(steps + 1.0))
+            lock = np.max(steps, axis=1)  # the lockstep cost of each sampling iteration
+            extra = (" sampling leapfrogs a chain mean=%.1f max=%d; depth reached mean=%.2f max=%d; "
+                     "lockstep (deepest chain) leapfrogs an iteration mean=%.1f"
+                     % (steps.mean(), steps.max(), depth.mean(), depth.max(), lock.mean()))
+        else:
+            extra = " step_size median=%.4g" % float(res.step_size.median())
+        print("sampler path: %s bnn dim=%d chains=%d warmup=%d samples=%d wall_s=%.3f "
+              "ess_bulk min=%.1f median=%.1f -> min_ess_per_s=%.2f median_ess_per_s=%.2f "
+              "geyer_min_ess_per_s=%.2f rhat_max=%.4f accept=%.3f divergences=%d "
+              "leapfrogs_per_iteration=%.2f ms_per_leapfrog=%.3f (first %d iterations: "
+              "device_ops_per_iteration=%.0f busy_share=%.4f host_reads_per_iteration=%.2f)%s; %s"
+              % (name, flp.dim, SAMPLER_CHAINS, warm, samp, wall, ess.min(), np.median(ess),
+                 ess.min() / wall, np.median(ess) / wall, ess_geyer.min() / wall,
+                 summ["rhat_max"], summ["accept_mean"], summ["divergences"], leapfrogs,
+                 1e3 * wall / max(leapfrogs * (warm + samp), 1), 2 * TRACE_ITERS,
+                 ops / (2 * TRACE_ITERS), busy, reads / (2 * TRACE_ITERS), extra, gauss))
+        out[name] = {"wall": wall, "min_ess_per_s": ess.min() / wall, "accept": summ["accept_mean"],
+                     "leapfrogs": leapfrogs}
+    return out
+
+
+def bayes_data(n):
+    """examples/bayes_hypers_sparse.py's rows: sorted U[0, 6], labels from
+    sigmoid(3 sin x)."""
+    rng = np.random.default_rng(0)
+    X = np.sort(rng.uniform(0, 6, (n, 1))).astype(np.float32)
+    p_true = 1.0 / (1.0 + np.exp(-3.0 * np.sin(X)))
+    return X, (rng.uniform(size=X.shape) < p_true).astype(np.float32)
+
+
+def bayes_flp(hb, X, Y, device, params=None):
+    from henbun_tpu_torch.inference import logprob
+
+    m = hb.models.SparseGPC(seed=1, X=X, Y=Y, num_inducing=BAYES_M, device=device)
+    if params is not None:
+        m.set_param_dict({k: v.to(hb.settings.dtypes.float_type) for k, v in params.items()})
+    return m, logprob.make_log_prob(m, "log_posterior", hb.graph_key.VARIABLES)
+
+
+def theta_leaves(flp, values, grads):
+    """A batched (log_prob [C], gradient [C, dim]) as held()'s (values,
+    {path: gradient columns}), numpy float64."""
+    g = grads.detach().double().cpu().numpy()
+    out, off = {}, 0
+    for path, shape in zip(flp.paths, flp.shapes):
+        size = int(np.prod(shape))
+        out[path] = g[:, off:off + size]
+        off += size
+    return values.detach().double().cpu().numpy(), out
+
+
+def bayes_phase(torch, hb):
+    """Bayesian hyperparameters (examples/bayes_hypers_sparse.py at
+    docs/PERF.md:436's width): SparseGPC log_posterior at n = 2e4, m = 32,
+    BAYES_CHAINS ChEES chains through sample_posterior. K1 and K2 launches
+    a gradient evaluation (the 8 chains' vmapped evidence: every Newton
+    iteration's factor and the Kmm factor on K1, the IFT's solves on K2)
+    and an iteration; the vmapped log_prob and its gradient at one theta
+    card vs CPU and kernels on vs off (each gradient leaf held to the
+    card's float64 at BAYES_F64_LIMITS); ESS/s, R-hat, the posterior medians
+    and 90% intervals, host reads a leapfrog, busy share."""
+    from henbun_tpu_torch.inference import logprob, sample_posterior
+
+    X, Y = bayes_data(BAYES_N)
+    model, flp = bayes_flp(hb, X, Y, "cuda")
+    params = {k: v.detach().cpu() for k, v in model.param_dict().items()}
+    g = torch.Generator(device="cuda").manual_seed(1)
+    theta = flp.initial + 0.1 * torch.randn((BAYES_CHAINS, flp.dim), generator=g, device="cuda")
+    vg = logprob.batched_value_and_grad(flp.log_prob)
+    vg(theta)  # warm
+    # safe_cholesky's retry flag is a host read: no graph, so the settings
+    # below (use_kernels off) take effect at the next evaluation
+    check(vg.graphed is False, "bayes: a target that reads the host was captured")
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = vg(theta)
+    torch.cuda.synchronize()
+    vg_s = time.perf_counter() - t0
+    per_eval = {k: c.launches for k, c in counters.items()}
+    check(per_eval["K1"] > 0 and per_eval["K2"] > 0,
+          "bayes: K1/K2 launched %r in one gradient evaluation" % per_eval)
+    _, reads = host_reads(torch, lambda: vg(theta))
+    ops, busy = traced_call(torch, lambda: vg(theta))
+    with hb.settings.temp_settings(settings_with(hb, use_kernels=False)):
+        off = vg(theta)
+
+    def g64():
+        cfg = hb.settings.get_settings()
+        cfg.dtypes.float_type = torch.float64
+        with hb.settings.temp_settings(cfg):
+            _, f64 = bayes_flp(hb, X, Y, "cuda", params)
+            return theta_leaves(f64, *logprob.batched_value_and_grad(f64.log_prob)(
+                theta.double()))[1]
+
+    _, fcpu = bayes_flp(hb, X, Y, "cpu", params)
+    cpu = logprob.batched_value_and_grad(fcpu.log_prob)(theta.cpu())
+    card, cpu, off = (theta_leaves(flp, *r) for r in (card, cpu, off))
+    text = "; ".join((
+        held(torch, "card vs CPU", card, cpu, g64, f64_limits=BAYES_F64_LIMITS),
+        held(torch, "kernels on vs off", card, off, g64, f64_limits=BAYES_F64_LIMITS)))
+    warm, samp = BAYES_ITERS
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, post, diag = sample_posterior(model, "log_posterior", num_chains=BAYES_CHAINS,
+                                       num_samples=samp, num_warmup=warm, sampler="chees",
+                                       return_diagnostics=True, generator=g)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run = {k: c.launches for k, c in counters.items()}
+    check(run["K1"] > 0 and run["K2"] > 0, "bayes: K1/K2 launched %r in the run" % run)
+    check(bool(torch.isfinite(res.samples).all()), "bayes: non-finite samples")
+    acc = diag["accept_mean"]
+    check(0.5 < acc < 0.95, "bayes: accept %g outside (0.5, 0.95)" % acc)
+    quant = []
+    for path in ("k_var", "gp.kern.lengthscales"):
+        lo, med, hi = np.quantile(post[path].reshape(-1), [0.05, 0.5, 0.95])
+        quant.append("%s median %.4f 90%% [%.4f, %.4f]" % (path, med, lo, hi))
+    iters = warm + samp
+    print("bayes path: SparseGPC log_posterior n=%d m=%d chains=%d warmup=%d samples=%d "
+          "wall_s=%.3f ess_bulk_min=%.1f -> min_ess_per_s=%.3f rhat_max=%.4f accept=%.3f "
+          "divergences=%d step_size=%.4g trajectory_length=%.4g; launches a gradient evaluation "
+          "K1=%d K2=%d K3=%d (%.3f s; host reads %d, device ops %d, busy_share %.4f); launches an "
+          "iteration K1=%.1f K2=%.1f; %s; %s"
+          % (BAYES_N, BAYES_M, BAYES_CHAINS, warm, samp, wall, diag["ess_bulk_min"],
+             diag["ess_bulk_min"] / wall, diag["rhat_max"], acc, diag["divergences"],
+             float(res.step_size), float(res.trajectory_length), per_eval["K1"], per_eval["K2"],
+             per_eval["K3"], vg_s, reads, ops, busy, run["K1"] / iters, run["K2"] / iters,
+             "; ".join(quant), text))
+    return {"wall": wall, "per_eval": per_eval, "reads": reads, "busy": busy,
+            "min_ess_per_s": diag["ess_bulk_min"] / wall}
+
+
+def projection_matrix(g):
+    """examples/smc_tomography.py's rays: row, column and two diagonal-band
+    line integrals over a g x g grid."""
+    rows = []
+    idx = np.arange(g * g).reshape(g, g)
+    for i in range(g):
+        r = np.zeros(g * g)
+        r[idx[i, :]] = 1.0
+        rows.append(r)
+        c = np.zeros(g * g)
+        c[idx[:, i]] = 1.0
+        rows.append(c)
+    for off in range(-g + 1, g):
+        d = np.zeros(g * g)
+        d[np.diag(idx, off)] = 1.0
+        rows.append(d)
+    return np.stack(rows).astype(np.float32)
+
+
+def smoothness_precision(g, strength=4.0):
+    """examples/smc_tomography.py's prior: graph-Laplacian precision + ridge."""
+    n = g * g
+    L = np.zeros((n, n))
+    idx = np.arange(n).reshape(g, g)
+    for i in range(g):
+        for j in range(g):
+            a = idx[i, j]
+            for di, dj in ((0, 1), (1, 0)):
+                if i + di < g and j + dj < g:
+                    b = idx[i + di, j + dj]
+                    L[a, a] += 1
+                    L[b, b] += 1
+                    L[a, b] -= 1
+                    L[b, a] -= 1
+    return (strength * L + np.eye(n)).astype(np.float32)
+
+
+def smc_phase(torch, hb):
+    """BASELINE config 5 (benchmarks/smc_bench.py): adaptive-tempered SMC on
+    the 8 x 8 grid-absorption linear-Gaussian tomography, SMC_PARTICLES
+    particles, 5 moves of 8 leapfrogs a stage, step 0.05. Final beta 1,
+    the posterior mean within SMC_MEAN_GATE of the analytic posterior's,
+    stages/s, stages, log-evidence against the analytic log Z. The
+    likelihood's evaluation is captured as a CUDA graph (it never
+    synchronizes): held to the eager one and both timed."""
+    from henbun_tpu_torch.inference import logprob, smc
+
+    g = SMC_GRID
+    rng = np.random.default_rng(0)
+    xv, yv = np.meshgrid(np.linspace(-1, 1, g), np.linspace(-1, 1, g))
+    truth = np.exp(-((xv - 0.2) ** 2 + (yv + 0.1) ** 2) / 0.3).ravel().astype(np.float32)
+    A = projection_matrix(g)
+    y = A @ truth + rng.normal(size=A.shape[0]).astype(np.float32) * SMC_NOISE
+    P0 = smoothness_precision(g)
+    noise_var = SMC_NOISE**2
+    post_mean = np.linalg.solve(P0 + A.T @ A / noise_var, A.T @ y / noise_var)
+    # log Z = log E_prior[exp(log_lik)], the prior N(0, P0^-1), the
+    # likelihood unnormalized: log N(y; 0, A P0^-1 A^T + s2 I) + (r/2) log(2 pi s2)
+    A64, y64 = A.astype(np.float64), y.astype(np.float64)
+    S = A64 @ np.linalg.inv(P0.astype(np.float64)) @ A64.T + noise_var * np.eye(len(y))
+    r = len(y)
+    log_Z = (-0.5 * y64 @ np.linalg.solve(S, y64) - 0.5 * np.linalg.slogdet(S)[1]
+             - 0.5 * r * np.log(2 * np.pi) + 0.5 * r * np.log(2 * np.pi * noise_var))
+    At, yt, P0t = (torch.tensor(a, device="cuda") for a in (A, y, P0))
+
+    def log_prior(t):
+        return -0.5 * t @ P0t @ t
+
+    def log_lik(t):
+        return -0.5 * torch.sum((At @ t - yt) ** 2) / noise_var
+
+    Lp = np.linalg.cholesky(np.linalg.inv(P0))
+    z = rng.normal(size=(SMC_PARTICLES, g * g)).astype(np.float32)
+    particles = torch.tensor(z @ Lp.T.astype(np.float32), device="cuda")
+    vg = logprob.batched_value_and_grad(log_lik)
+    diff = max(float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(vg(particles), vg.fn(particles)))
+    check(vg.graphed, "smc: the likelihood was not captured: it synchronizes the host")
+    check(diff <= 1e-5, "smc: graphed likelihood/gradient %g from the eager one" % diff)
+    eager_ms, graphed_ms = (time_ms(torch, lambda: f(particles)) for f in (vg.fn, vg))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = smc.sample(log_prior, log_lik, particles, 1, num_move_steps=5, num_leapfrog=8,
+                     step_size=0.05)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    est = res.particles.double().mean(0).cpu().numpy()
+    err = float(np.abs(est - post_mean).mean())
+    check(float(res.final_beta) > 1.0 - 1e-5, "smc: final beta %g" % float(res.final_beta))
+    check(err < SMC_MEAN_GATE, "smc: posterior mean abs err %g, gate %g" % (err, SMC_MEAN_GATE))
+    print("smc path: grid=%dx%d particles=%d moves=5x8 stages=%d seconds=%.3f stages_per_s=%.3f "
+          "(likelihood + gradient of the particles eager %.3f ms, graphed %.3f ms, graphed vs eager "
+          "max rel %.3g) final_beta=%.6f posterior_mean_abs_err=%.5f (gate %g) "
+          "log_evidence=%.3f analytic_log_Z=%.3f"
+          % (g, g, SMC_PARTICLES, res.num_stages, seconds, res.num_stages / seconds, eager_ms,
+             graphed_ms, diff, float(res.final_beta), err, SMC_MEAN_GATE,
+             float(res.log_evidence), log_Z))
+    return {"stages_per_s": res.num_stages / seconds, "stages": res.num_stages}
+
+
 def all_counters():
     from henbun_tpu_torch.ops import cuda_chol, cuda_wide
 
@@ -2120,6 +2733,12 @@ def main():
     t0 = time.perf_counter()
     resume_phase(torch, hb, sparse["SparseGPC laplace"]["resume"])
     print("resume phase: %.1f s" % (time.perf_counter() - t0))
+    later = {}
+    for name, phase in (("multiclass", multiclass_phase), ("samplers", sampler_phase),
+                        ("bayes", bayes_phase), ("smc", smc_phase)):
+        t0 = time.perf_counter()
+        later[name] = phase(torch, hb)
+        print("%s phase: %.1f s" % (name, time.perf_counter() - t0))
 
     # launches: the Laplace fleet's path run for K1-K3 (every one of them
     # runs on it; the GPR path's K1 and K2 counts are on its own line
@@ -2187,6 +2806,14 @@ def main():
              sparse_fleet["reads"],
              ", ".join("%s=%.2f" % (k, v["steps_per_s"])
                        for k, v in {**ep_fleets, **sparse, "sparse fleet": sparse_fleet}.items())))
+    bayes = later["bayes"]
+    print("multiclass, samplers, bayes, smc: multiclass steps_per_s=%.3f host reads a step %.1f; "
+          "BNN min bulk ESS/s %s; bayes K1/K2 launches a gradient evaluation %d/%d, min bulk "
+          "ESS/s %.3f; smc stages_per_s=%.3f stages=%d"
+          % (later["multiclass"]["steps_per_s"], later["multiclass"]["reads"],
+             ", ".join("%s=%.2f" % (k, v["min_ess_per_s"]) for k, v in later["samplers"].items()),
+             bayes["per_eval"]["K1"], bayes["per_eval"]["K2"], bayes["min_ess_per_s"],
+             later["smc"]["stages_per_s"], later["smc"]["stages"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

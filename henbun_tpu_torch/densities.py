@@ -14,10 +14,13 @@ from .ops.linalg import log_sum_exp, tri_solve
 def _tensors(*args):
     """The arguments as tensors: numpy arrays and Python numbers (fixed
     hyperparameters) take the dtype and device of the first tensor among
-    them."""
+    them. A number is filled in on the device (``torch.full``), not copied
+    from the host: a host-to-device copy of a pageable number synchronizes
+    the host with the device at every call."""
     like = next(a for a in args if isinstance(a, torch.Tensor))
     return [
         a if isinstance(a, torch.Tensor)
+        else torch.full((), float(a), dtype=like.dtype, device=like.device) if np.ndim(a) == 0
         else torch.as_tensor(np.asarray(a), dtype=like.dtype, device=like.device)
         for a in args
     ]

@@ -24,7 +24,14 @@ With ``fused=(tag, params)`` a batched call (a BatchedOptimizer fleet under
 ``torch.func.vmap``) runs the whole Newton forward as one launch of the
 hand-written CUDA kernel K3 (``ops/cuda_newton.py``) on CUDA tensors, or
 its plain version on CPU tensors; an unbatched call runs the generic loop.
-The multiclass engine of the JAX package is not ported yet.
+
+The K-class softmax likelihood couples the classes at each point, so it
+has its own engine (``multiclass_laplace_projected``, GPML ch. 3.5's block
+curvature). It never forms the Newton matrix H = I + blocks(A^T W A):
+every solve and the evidence's log-determinant go through the square-root
+factor of the curvature (``_softmax_G``) and its shifted CholeskyQR2
+factor (``_sqrt_gram_factor``), which keeps H's unit eigenvalue floor in
+float32 at n * k_var scales where a float32-built H has lost it.
 """
 from __future__ import annotations
 
@@ -338,3 +345,278 @@ def laplace_latent_marginals(loglik_fn, Lk, res, Ks, kdiag, jitter=1e-6):
         min=0.0,
     )[..., None]
     return mean, var
+
+
+# --------------------------------------------------------- multiclass (softmax)
+class MulticlassLaplaceResult(NamedTuple):
+    """Mode and curvature for the K-class softmax likelihood over a
+    projected latent F = A U (U [m, K] whitened per class).
+
+    u_mode: [m, K]; f_mode: the training logits [n, K]; log_marginal: the
+    Laplace evidence; grad_norm: |grad psi| at the mode (~0 when
+    converged)."""
+
+    u_mode: torch.Tensor
+    f_mode: torch.Tensor
+    log_marginal: torch.Tensor
+    grad_norm: torch.Tensor
+
+
+def _per_model(fn, *args):
+    """fn on one model's 2-D operands, or under torch.func.vmap over a
+    leading batch axis (the batch an autograd.Function's vmap rule hands
+    over), so the factorizations and solves inside see the whole batch
+    through their own vmap rules."""
+    if args[0].ndim == 2:
+        return fn(*args)
+    return torch.func.vmap(fn)(*args)
+
+
+def _one_hot(y_idx, n_classes, dtype):
+    """[n, K] one-hot rows of integer labels (a comparison, so it runs
+    under vmap)."""
+    classes = torch.arange(int(n_classes), device=y_idx.device)
+    return (y_idx.long()[..., None] == classes).to(dtype)
+
+
+def _softmax_psi(A, Y1, u):
+    """(psi, F, G, Pi): log-posterior value, logits, dloglik/dF, softmax.
+    A leading axis on u (a batch of trial points) gives a psi each."""
+    F = matmul_hp(A, u)  # [..., n, K]
+    Pi = torch.softmax(F, dim=-1)
+    G = Y1 - Pi
+    ll = torch.sum(Y1 * (F - torch.logsumexp(F, dim=-1, keepdim=True)), dim=(-2, -1))
+    return ll - 0.5 * torch.sum(u * u, dim=(-2, -1)), F, G, Pi
+
+
+def _softmax_G(A, Pi):
+    """The square-root factor G [n K, K m] of the blocked softmax curvature:
+    G^T G = blocks(A^T W_cc' A) with W_i = diag(pi_i) - pi_i pi_i^T (GPML
+    ch. 3.5's coupling), so the Newton matrix H = I + G^T G is never
+    formed. With q = sqrt(pi), W = D^1/2 (I - q q^T) D^1/2 and I - q q^T is
+    an orthogonal projector, so C = D^1/2 (I - q q^T), C_ce = q_c d_ce -
+    pi_c q_e, satisfies C C^T = W exactly; G stacks the rows
+    G[(n, e), (c, i)] = C_n[c, e] A[n, i]. Column order (c, i) -> c m + i,
+    the u layout used throughout.
+
+    Factorizations derived from G see condition sqrt(cond H) and keep the
+    unit floor exact; a float32-built H loses it to entry rounding at
+    n k_var ~ 2e5 a class."""
+    n, m = A.shape
+    K = Pi.shape[-1]
+    q = torch.sqrt(Pi)
+    eyeK = torch.eye(K, dtype=A.dtype, device=A.device)
+    C = q[:, :, None] * eyeK[None] - Pi[:, :, None] * q[:, None, :]  # [n, c, e]
+    return (C.permute(0, 2, 1)[..., None] * A[:, None, None, :]).reshape(n * K, K * m)
+
+
+def _cholesky_nan(B):
+    """Lower Cholesky factor, all NaN where B is not positive definite (as
+    ``jnp.linalg.cholesky``; ``torch.linalg.cholesky`` would raise)."""
+    L, info = torch.linalg.cholesky_ex(B)
+    return torch.where((info > 0)[..., None, None], float("nan"), L)
+
+
+def _sqrt_gram_factor(G, jitter=1e-4):
+    """Upper-triangular R with R^T R = I + G^T G at Householder-QR accuracy,
+    from matmuls and two small p x p Cholesky factorizations: shifted
+    CholeskyQR2 (Fukaya et al. 2020).
+
+    Pass 1 factors the floored normal matrix B0 = I + G^T G + f I; pass 2
+    re-orthogonalizes: with Q1 = [G; I] R0^-1, B1 = Q1^T Q1 is near the
+    identity and R = chol(B1)^T R0 satisfies R^T R = I + G^T G exactly in
+    exact arithmetic, so the shift f cancels. diag(R) > 0.
+
+    The shift base is 1e-4 relative (the library's usual base is 1e-6):
+    it cancels in pass 2, so a generous shift costs nothing, and at
+    n k_var ~ 1e7 a matmul's accumulated float32 rounding of B0 can exceed
+    a 1e-6 relative floor and leave pass 1 indefinite."""
+    p = G.shape[-1]
+    I = eye(p, G.dtype, G.device)
+    B0 = I + matmul_hp(G.mT, G)
+    L0 = safe_cholesky(_with_floor(B0, jitter), jitter)
+    L0inv = tri_solve(L0, I)
+    R0inv = L0inv.mT
+    Gi = matmul_hp(G, R0inv)
+    B1 = matmul_hp(Gi.mT, Gi) + matmul_hp(L0inv, R0inv)
+    L1 = _cholesky_nan(B1)
+    return matmul_hp(L1.mT, L0.mT)
+
+
+def _sqrt_solve(R, b):
+    """(I + G^T G)^-1 b from the CholQR2 factor: R^-1 (R^-T b). R^T is
+    lower triangular, so both solves take the library's solve dispatch."""
+    RT = R.mT
+    return tri_solve_T(RT, tri_solve(RT, b))
+
+
+def _logdet_of(G):
+    R = _sqrt_gram_factor(G)
+    return 2.0 * torch.sum(torch.log(torch.diagonal(R, dim1=-2, dim2=-1))), R
+
+
+def _logdet_grad(G, R, lam):
+    """2 lam G H^-1, H^-1 = R^-1 R^-T from the saved factor."""
+    Rinv = tri_solve_T(R.mT, eye(R.shape[-1], R.dtype, R.device))
+    return 2.0 * lam * matmul_hp(G, matmul_hp(Rinv, Rinv.mT))
+
+
+class LogdetSqrtGram(torch.autograd.Function):
+    """log det(I + G^T G) through the square-root factor. The backward is
+    the exact identity d logdet = <2 G H^-1, dG> from the saved factor
+    (one triangular inverse and one tall matmul). Under vmap the rule
+    hands the whole batch to one call."""
+
+    @staticmethod
+    def forward(G):
+        return _per_model(_logdet_of, G)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output[1])
+        ctx.save_for_backward(inputs[0], output[1])
+
+    @staticmethod
+    def backward(ctx, lam, _):
+        G, R = ctx.saved_tensors
+        return _per_model(_logdet_grad, G, R, lam)
+
+    @staticmethod
+    def vmap(info, in_dims, G):
+        out = LogdetSqrtGram.apply(_to_front(G, in_dims[0], info.batch_size))
+        return out, (0, 0)
+
+
+def logdet_sqrt_gram(G):
+    """log det(I + G^T G) via the square-root factor: stable where the
+    float32-built normal matrix has lost its unit eigenvalue floor; see
+    :class:`LogdetSqrtGram`."""
+    return LogdetSqrtGram.apply(G)[0]
+
+
+def _softmax_newton(A, Y1, iters):
+    """Damped Newton iterations for the softmax mode; softmax is
+    log-concave, so H is positive definite. The same four-step ladder as
+    the scalar engine; the direction solves take the CholQR2 factor (H is
+    never formed)."""
+    n, m = A.shape
+    K = Y1.shape[-1]
+    alphas = torch.tensor((1.0, 0.3, 0.1, 0.03), dtype=A.dtype, device=A.device)
+    u = torch.zeros((m, K), dtype=A.dtype, device=A.device)
+    for _ in range(int(iters)):
+        psi0, F, G, Pi = _softmax_psi(A, Y1, u)
+        grad = matmul_hp(A.mT, G) - u  # [m, K]
+        R = _sqrt_gram_factor(_softmax_G(A, Pi))
+        d = _sqrt_solve(R, grad.mT.reshape(K * m, 1))
+        d = d.reshape(K, m).mT  # [m, K]
+        tie_tol = 1e-5 * (1.0 + torch.abs(psi0))
+        U_try = u[None] + alphas[:, None, None] * d[None]  # [4, m, K]
+        psis = _softmax_psi(A, Y1, U_try)[0]
+        best_u, best_psi = u, psi0
+        for i in range(4):
+            take = psis[i] >= best_psi - tie_tol if i == 0 else psis[i] > best_psi
+            best_u = torch.where(take, U_try[i], best_u)
+            best_psi = torch.where(take, psis[i], best_psi)
+        u = best_u
+    return u
+
+
+def _softmax_mode_vjp(A, Y1, u, ubar):
+    """IFT at the mode: F(u; A) = A^T (Y1 - softmax(A u)) - u = 0,
+    dF/du = -H, so ubar^T du*/dA = w^T dF/dA with H w = ubar, solved
+    through the CholQR2 factor."""
+    m, K = u.shape
+    _, _, _, Pi = _softmax_psi(A, Y1, u)
+    R = _sqrt_gram_factor(_softmax_G(A, Pi))
+    w = _sqrt_solve(R, ubar.mT.reshape(K * m, 1)).reshape(K, m).mT  # [m, K]
+
+    def Ffn(A_):
+        G_ = Y1 - torch.softmax(matmul_hp(A_, u), dim=-1)
+        return matmul_hp(A_.mT, G_) - u
+
+    _, vjp = torch.func.vjp(Ffn, A)
+    return vjp(w)[0]
+
+
+class SoftmaxModeImplicit(torch.autograd.Function):
+    """The softmax Newton mode with the implicit-function-theorem backward
+    (the JAX package's custom_vjp): the forward runs the Newton iterations
+    on detached inputs, the backward solves H w = ubar at the mode and
+    takes the VJP of the stationarity condition with respect to A."""
+
+    @staticmethod
+    def forward(A, Y1, iters):
+        return _per_model(lambda a, y: _softmax_newton(a, y, iters), A, Y1)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], inputs[1], output)
+
+    @staticmethod
+    def backward(ctx, ubar):
+        A, Y1, u = ctx.saved_tensors
+        return _per_model(_softmax_mode_vjp, A, Y1, u, ubar), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, A, Y1, iters):
+        size = info.batch_size
+        return SoftmaxModeImplicit.apply(
+            _to_front(A, in_dims[0], size), _to_front(Y1, in_dims[1], size), iters
+        ), 0
+
+
+def multiclass_laplace_projected(A, y_idx, n_classes, newton_iters=15,
+                                 implicit_diff=True):
+    """Laplace approximation for K-class softmax GP classification on the
+    projected (inducing-point) latent F = A U, U ~ N(0, I_{m x K}).
+
+    A [n, m]: the shared per-class projection (sqrt(k_var) (Lm^-1 Kmn)^T);
+    y_idx [n] integer labels. The softmax couples the classes at each
+    point, so the curvature has GPML ch. 3.5's block structure, which the
+    factorizing-likelihood engine cannot express. Evidence gradients come
+    from the implicit function theorem at the mode (softmax is
+    log-concave: H is positive definite, the mode unique), or with
+    ``implicit_diff=False`` through the unrolled iterations.
+
+    Every solve and the evidence's log-determinant take the square-root
+    curvature factor (``_softmax_G``, ``_sqrt_gram_factor``). A single 2-D
+    model factors its Km x Km matrices on ``torch.linalg``; a fleet with
+    K m <= 128 (under vmap) sends them to the batched kernels.
+    """
+    K = int(n_classes)
+    Y1 = _one_hot(y_idx, K, A.dtype)  # [n, K]
+    if implicit_diff:
+        u_star = SoftmaxModeImplicit.apply(A, Y1, int(newton_iters))
+    else:
+        u_star = _softmax_newton(A, Y1, int(newton_iters))
+    psi, F, G, Pi = _softmax_psi(A, Y1, u_star)
+    grad = matmul_hp(A.mT, G) - u_star
+    logdet = logdet_sqrt_gram(_softmax_G(A, Pi))
+    return MulticlassLaplaceResult(
+        u_mode=u_star,
+        f_mode=F,
+        log_marginal=psi - 0.5 * logdet,
+        grad_norm=torch.linalg.norm(grad),
+    )
+
+
+def multiclass_laplace_joint_marginals(A, res, Astar, corr_diag, jitter=1e-4):
+    """Per-point joint class-logit Gaussians at new inputs under the
+    multiclass Laplace posterior: means [n*, K] and covariances
+    [n*, K, K], cov(F*_c, F*_c') = Astar_j [H^-1]_cc' Astar_j^T plus the
+    residual corr_diag on the diagonal. Feed to an E[softmax] estimator
+    for predictive probabilities."""
+    n, m = A.shape
+    K = res.u_mode.shape[-1]
+    Pi = torch.softmax(res.f_mode, dim=-1)
+    # CholQR2 factor: R^T R = H, so R^T is the lower factor the solve takes
+    Lh = _sqrt_gram_factor(_softmax_G(A, Pi), jitter).mT
+    means = matmul_hp(Astar, res.u_mode)  # [n*, K]
+    ns = Astar.shape[-2]
+    # blocks[c m + i, c', j] = d_cc' Astar[j, i]: I_K kron Astar^T
+    eyeK = torch.eye(K, dtype=A.dtype, device=A.device)
+    blocks = (eyeK[:, None, :, None] * Astar.mT[None, :, None, :]).reshape(K * m, K * ns)
+    Gh = tri_solve(Lh, blocks).reshape(K * m, K, ns)
+    covs = torch.einsum("rcj,rdj->jcd", Gh, Gh)
+    covs = covs + corr_diag[:, None, None] * eyeK[None]
+    return means, covs

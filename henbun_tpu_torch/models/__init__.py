@@ -1,5 +1,6 @@
 """Prebuilt model families: GP regression and binary GP classification
-(dense and inducing-point, by Laplace or EP evidence),
+(dense and inducing-point, by Laplace or EP evidence), multiclass
+inducing-point classification by the softmax Laplace evidence,
 variational and MAP linear models, amortized (encoder-fed) SVI regression,
 Bayesian neural nets and the sparse variational GP families."""
 from .gpr import GPR, GPRMarginal, SparseGPRobust, make_sine_dataset
@@ -12,4 +13,4 @@ from .svgp import (
     SVGPCount,
     SVGPMulticlass,
 )
-from .gpc import GPC, SparseGPC
+from .gpc import GPC, SparseGPC, SparseGPMulticlass

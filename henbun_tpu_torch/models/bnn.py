@@ -3,7 +3,7 @@
 * ``VariationalBNN``: SVI with Variational weights (a mean-field q over
   every weight matrix), trained by the ELBO training loop.
 * ``BNN``: a point-weight network whose ``log_posterior`` is the target
-  density of the HMC/NUTS/SMC samplers (which come with their own slice).
+  density of the HMC/ChEES/NUTS/SMC samplers (``inference/``).
 """
 from __future__ import annotations
 

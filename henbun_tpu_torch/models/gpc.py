@@ -19,8 +19,11 @@ Two scales share this module:
 * ``SparseGPC``: the inducing-point classifier, the same deterministic
   evidence and predictive pipeline at n >= 1e5 with every factorization
   m x m. With z = X it is GPC.
+* ``SparseGPMulticlass``: the K-class (softmax) inducing-point classifier
+  on the multiclass Laplace engine (``multiclass_laplace_projected``).
 
-Labels y are {0, 1} floats of shape [n, 1].
+Labels y are {0, 1} floats of shape [n, 1] (the binary families) or
+integer class indices of shape [n, 1] (``SparseGPMulticlass``).
 """
 from __future__ import annotations
 
@@ -269,8 +272,10 @@ class SparseGPC(Model):
     @AutoOptimize()
     def log_posterior(self):
         """Sparse Laplace evidence + weak hyperpriors: the target for
-        Bayesian hyperparameters at inducing-point scale (the samplers come
-        with their own slice of the port)."""
+        Bayesian hyperparameters at inducing-point scale:
+        ``inference.sample_posterior(m, "log_posterior")`` runs ChEES over
+        (k_var, lengthscales), the chains' evidences batched under vmap, so
+        their factorizations and solves take K1 and K2 on the card."""
         from ._zguard import z_guard
 
         return (self._laplace(self._A(self.x)).log_marginal - z_guard(self)
@@ -307,3 +312,67 @@ class SparseGPC(Model):
         mean, var = ep_projected_marginals(res, A, Astar, corr)
         p = gauss_hermite_expectation(torch.sigmoid, mean[:, 0], var[:, 0], deg=deg)
         return p[:, None]
+
+
+class SparseGPMulticlass(Model):
+    """Inducing-point multiclass (softmax) Laplace classifier: deterministic
+    K-class evidence training at n >= 1e5, the evidence counterpart of
+    ``SVGPMulticlass.ELBO_bound``. With z = X and float64 it is the numpy
+    oracle of the JAX package's ``tests/test_multiclass_oracle.py``.
+
+    The softmax couples classes at each point (GPML ch. 3.5's block
+    curvature), so this rides ``multiclass_laplace_projected``, which works
+    on the curvature's square-root factor (shifted CholeskyQR2) and never
+    forms I + A^T W A. Labels Y are integer class indices [n, 1]. Train
+    full-batch (see SparseGPC)."""
+
+    def setUp(self, X, Y, num_classes, num_inducing=64, kern=None,
+              newton_iters=15, train_z=False, z_penalty=None, z_init=None):
+        self._K = int(num_classes)
+        _sparse_setup(self, X, np.asarray(Y, np.int32), num_inducing, kern,
+                      newton_iters, train_z, z_penalty, z_init)
+
+    def _A(self, x):
+        """The projection sqrt(k_var) (Lm^-1 K(z, x))^T: [B, m]."""
+        return _projection(self, x)
+
+    def _laplace(self, A):
+        from ..inference.laplace import multiclass_laplace_projected
+
+        return multiclass_laplace_projected(
+            A, self.y[:, 0], self._K, newton_iters=self._newton_iters
+        )
+
+    @AutoOptimize()
+    def log_marginal_laplace(self):
+        """Multiclass Laplace evidence: deterministic; IFT gradients."""
+        from ._zguard import z_guard
+
+        return self._laplace(self._A(self.x)).log_marginal - z_guard(self)
+
+    def laplace(self):
+        """Full :class:`~henbun_tpu_torch.inference.laplace.MulticlassLaplaceResult`
+        at the current hyperparameters."""
+        return self._laplace(self._A(self.x))
+
+    def predict_p(self, x_new, num=512):
+        """Deterministic posterior predictive class probabilities [n*, K]:
+        joint per-point class-logit Gaussians from the blocked curvature,
+        then E[softmax] by `num` fixed draws (a generator seeded 0, the
+        same at every call; injection path ``"predict_p"``)."""
+        from ..inference.laplace import _with_floor, multiclass_laplace_joint_marginals
+        from ..ops.linalg import safe_cholesky
+        from .svgp import _fixed_normal
+
+        A = self._A(self.x)
+        res = self._laplace(A)
+        Astar, corr = _new_projection(self, x_new)
+        means, covs = multiclass_laplace_joint_marginals(A, res, Astar, corr)
+        # a scale-aware floor and safe_cholesky, not a fixed absolute
+        # jitter: at large k_var the float32-rounded near-PSD covariances
+        # can dip below any absolute jitter
+        chols = safe_cholesky(_with_floor(covs, 1e-8), 1e-8)
+        eps = _fixed_normal("predict_p", (int(num),) + tuple(means.shape), means.dtype,
+                            means.device)  # [num, n*, K]
+        draws = means[None] + torch.einsum("jkl,sjl->sjk", chols, eps)
+        return torch.mean(torch.softmax(draws, dim=-1), dim=0)

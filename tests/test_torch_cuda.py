@@ -2,8 +2,12 @@
 version, the launch counters, the wrappers' refusals, the batched
 Functions' values and gradients on the card against the CPU, a Laplace
 evidence fleet with the kernels against one without them, the blocked
-algorithms against torch.linalg, and the exact-gram GPRMarginal evidence
-on the card against the CPU.
+algorithms against torch.linalg, the exact-gram GPRMarginal evidence
+on the card against the CPU, each sampler on a Gaussian, the vmapped
+SparseGPC log_prob of 8 chains with the kernels against one without them,
+the SparseGPMulticlass evidence on the card against the CPU and its
+gradient against float64, and the samplers' evaluation captured as a CUDA
+graph where the target never reads the host and eager where it does.
 
 Every test carries the ``cuda`` marker and skips where torch finds no
 CUDA device; the decision is made inside each test. This file imports
@@ -465,3 +469,185 @@ def test_natgrad_fleet_step_kernels_on_matches_off():
         err_on = np.abs(out["on"][k] - want).max() / scale
         err_off = np.abs(out["off"][k] - want).max() / scale
         assert err_on <= 3 * err_off + 1e-5, (k, err_on, err_off)
+
+
+def _gauss(dev):
+    cov = np.array([[1.0, 0.7], [0.7, 2.0]])
+    prec = torch.tensor(np.linalg.inv(cov), dtype=torch.float32, device=dev)
+    return (lambda t: -0.5 * t @ prec @ t), cov
+
+
+@pytest.mark.parametrize("name", ["hmc", "chees", "nuts"])
+def test_sampler_on_a_gaussian_on_the_card(name):
+    """The JAX tests' gates (test_hmc.py, test_chees.py, test_nuts_smc.py)
+    on the card: means within 0.15 (ChEES 0.12), covariances within 0.35
+    (ChEES 0.3), accept rates in their ranges; the chains stay on the
+    card."""
+    from henbun_tpu_torch.inference import chees, hmc, nuts
+
+    dev = _card()
+    mod = {"hmc": hmc, "chees": chees, "nuts": nuts}[name]
+    lp, cov = _gauss(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    chains = 16 if name == "chees" else 8
+    init = torch.randn((chains, 2), generator=g, device=dev)
+    res = mod.sample(lp, init, g, num_samples=500, num_warmup=500 if name == "chees" else 300)
+    assert res.samples.device.type == "cuda"
+    x = res.samples.reshape(-1, 2).cpu().numpy()
+    mean_tol, cov_tol = (0.12, 0.3) if name == "chees" else (0.15, 0.35)
+    assert np.allclose(x.mean(0), 0.0, atol=mean_tol), x.mean(0)
+    assert np.allclose(np.cov(x.T), cov, atol=cov_tol), np.cov(x.T)
+    acc = float(res.accept_prob.mean())
+    assert (0.5 < acc < 0.95) if name == "chees" else acc > (0.6 if name == "nuts" else 0.5)
+
+
+def test_smc_on_the_card_reaches_the_posterior():
+    """test_nuts_smc.py's conjugate model on the card: posterior moments
+    and log-evidence against the analytic values."""
+    from henbun_tpu_torch.inference import smc
+
+    dev = _card()
+    rng = np.random.default_rng(0)
+    y = rng.normal(1.5, 1.0, size=20).astype(np.float32)
+    marg = np.ones((20, 20)) + np.eye(20)
+    log_Z = (-10 * np.log(2 * np.pi) - 0.5 * np.linalg.slogdet(marg)[1]
+             - 0.5 * y @ np.linalg.solve(marg, y))
+    yt = torch.tensor(y, device=dev)
+    c = float(0.5 * np.log(2 * np.pi))
+    res = smc.sample(lambda t: -0.5 * torch.sum(t**2) - c,
+                     lambda t: torch.sum(-0.5 * (yt - t[0]) ** 2 - c),
+                     torch.randn((2048, 1), generator=torch.Generator(device=dev).manual_seed(0),
+                                 device=dev), 1, num_move_steps=3, step_size=0.2)
+    x = res.particles[:, 0].cpu().numpy()
+    assert abs(x.mean() - y.sum() / 21) < 0.1 and abs(x.var() - 1 / 21) < 0.05
+    assert abs(float(res.log_evidence) - log_Z) < 1.5 and float(res.final_beta) > 0.999
+
+
+def _sparse_gpc(device, n=2000, m=32):
+    rng = np.random.default_rng(0)
+    X = np.sort(rng.uniform(0, 6, (n, 1))).astype(np.float32)
+    p_true = 1.0 / (1.0 + np.exp(-3.0 * np.sin(X)))
+    Y = (rng.uniform(size=X.shape) < p_true).astype(np.float32)
+    return thb.models.SparseGPC(seed=1, X=X, Y=Y, num_inducing=m, device=device)
+
+
+def test_bayes_log_prob_of_8_chains_kernels_on_matches_off():
+    """The vmapped SparseGPC log_posterior of 8 chains and its gradient:
+    with the kernels (K1 for every Newton factor and the Kmm factor, K2 for
+    the IFT's solves, counted) against use_kernels off and against the
+    CPU, 1e-4 of the scale."""
+    from henbun_tpu_torch.inference import logprob
+
+    dev = _card()
+    model = _sparse_gpc(dev)
+    flp = logprob.make_log_prob(model, "log_posterior", thb.graph_key.VARIABLES)
+    g = torch.Generator(device=dev).manual_seed(1)
+    theta = flp.initial + 0.1 * torch.randn((8, flp.dim), generator=g, device=dev)
+    vg = logprob.batched_value_and_grad(flp.log_prob)
+    k1, k2 = cuda_chol.cholesky128_vbatched.launches, cuda_solve.tri_solve128_vbatched.launches
+    v_on, g_on = vg(theta)
+    assert vg.graphed is False  # safe_cholesky's retry flag reads the host: use_kernels applies
+    assert cuda_chol.cholesky128_vbatched.launches > k1
+    assert cuda_solve.tri_solve128_vbatched.launches > k2
+    cfg = thb.settings.get_settings()
+    cfg.cuda.use_kernels = False
+    with thb.settings.temp_settings(cfg):
+        v_off, g_off = vg(theta)
+    cpu_model = _sparse_gpc("cpu")
+    cpu_model.set_param_dict({k: v.cpu() for k, v in model.param_dict().items()})
+    flp_cpu = logprob.make_log_prob(cpu_model, "log_posterior", thb.graph_key.VARIABLES)
+    v_cpu, g_cpu = logprob.batched_value_and_grad(flp_cpu.log_prob)(theta.cpu())
+    for v, gr in ((v_off, g_off), (v_cpu.to(dev), g_cpu.to(dev))):
+        torch.testing.assert_close(v_on, v, rtol=0, atol=1e-4 * float(v.abs().max()))
+        for d in range(flp.dim):
+            torch.testing.assert_close(g_on[:, d], gr[:, d], rtol=0,
+                                       atol=1e-4 * float(gr[:, d].abs().max()))
+
+
+# the card's float32 gradient against its float64 one at n = 2e4, m = 32,
+# each leaf's limit 3.5-3.9x its reading on an H100 80GB HBM3, 700 W (the
+# CPU's float32 reading in brackets): lengthscale 4.23e-5 (2.35e-3), k_var
+# 1.29e-5 (9.36e-6)
+MULTICLASS_F64_LIMITS = {"gp.kern.lengthscales": 1.5e-4, "k_var": 5e-5}
+
+
+def test_sparse_gp_multiclass_evidence_card_matches_cpu():
+    """SparseGPMulticlass at n = 2e4, m = 32, K = 3: the evidence on the card
+    against the CPU at the same weights (rtol 1e-4), and every gradient leaf
+    of the card held to the card's float64 evaluation at its limit
+    (MULTICLASS_F64_LIMITS), whether or not it is within 1e-4 of the CPU's."""
+    dev = _card()
+    rng = np.random.default_rng(0)
+    X = np.sort(rng.uniform(0, 6, (20000, 1))).astype(np.float32)
+    L = 2.5 * np.concatenate([np.sin(X + s) for s in (0.0, 2.1, 4.2)], axis=1)
+    P = np.exp(L - L.max(1, keepdims=True))
+    P /= P.sum(1, keepdims=True)
+    y = (P.cumsum(1) < rng.uniform(size=(20000, 1))).sum(1).astype(np.int32)[:, None]
+
+    def evaluate(device):
+        thb.set_seed(0)
+        m = thb.models.SparseGPMulticlass(seed=0, X=X, Y=y, num_classes=3, num_inducing=32,
+                                          device=device)
+        opt = m.log_marginal_laplace().compile(learning_rate=0.05)
+        val, _ = opt._evaluate_core_aux(opt._trainable, opt._frozen, opt._data_args(),
+                                        m.generator, None)
+        val.backward()
+        return val.item(), {k: t.grad.cpu().double() for k, t in opt._trainable.items()}
+
+    (v_card, g_card), (v_cpu, g_cpu) = evaluate(dev), evaluate("cpu")
+    cfg = thb.settings.get_settings()
+    cfg.dtypes.float_type = torch.float64
+    with thb.settings.temp_settings(cfg):
+        g64 = evaluate(dev)[1]
+    rel = {k: [float((g[k] - g64[k]).abs().max() / g64[k].abs().max()) for g in (g_card, g_cpu)]
+           for k in g64}
+    print("float32 gradient from the card's float64 (card, CPU): %r" % rel)
+    assert abs(v_card - v_cpu) <= 1e-4 * abs(v_cpu)
+    assert set(rel) == set(MULTICLASS_F64_LIMITS)
+    for k, (card, _) in rel.items():
+        assert card <= MULTICLASS_F64_LIMITS[k], (k, rel[k])
+
+
+def test_graphed_log_prob_equals_the_eager_one():
+    """The BNN's batched log_prob and gradient of 256 chains never
+    synchronize the host, so the evaluation is captured as a CUDA graph and
+    replayed: equal to the eager evaluation at the capture's theta and at a
+    new one."""
+    from henbun_tpu_torch.inference import logprob
+
+    dev = _card()
+    X, Y = thb.models.make_bnn_dataset(n=128)
+    model = thb.models.BNN(seed=0, X=X, Y=Y, hidden=16, device=dev)
+    flp = logprob.make_log_prob(model, "log_posterior")
+    graphed = logprob.batched_value_and_grad(flp.log_prob)
+    g = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(2):
+        theta = flp.initial + 0.1 * torch.randn((256, flp.dim), generator=g, device=dev)
+        replays = logprob.CudaGraphed.replays
+        got = graphed(theta)
+        assert graphed.graphed is True
+        assert logprob.CudaGraphed.replays == replays + 1
+        for a, b in zip(got, graphed.fn(theta)):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_a_target_that_reads_the_host_runs_eagerly():
+    """A log density that copies a host constant to the card (a
+    synchronizing copy) cannot be captured: the first evaluation finds the
+    synchronization, and every evaluation runs eagerly with no replay."""
+    from henbun_tpu_torch.inference import logprob
+
+    dev = _card()
+
+    def log_prob(t):
+        return -0.5 * torch.sum(t**2) * torch.tensor(2.0, device=t.device)
+
+    vg = logprob.batched_value_and_grad(log_prob)
+    theta = torch.randn((8, 3), generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    replays = logprob.CudaGraphed.replays
+    for scale in (1.0, 2.0):
+        lp, grad = vg(scale * theta)
+        torch.testing.assert_close(lp, -torch.sum((scale * theta) ** 2, -1))
+        torch.testing.assert_close(grad, -2.0 * scale * theta)
+    assert vg.graphed is False
+    assert logprob.CudaGraphed.replays == replays
