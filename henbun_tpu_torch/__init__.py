@@ -10,7 +10,9 @@ Laplace Newton loop through a third (``ops/cuda_newton.py``). The natural
 gradient (``optimizers.py``) factors and inverts its Gaussians through the
 first two, and so do the sweeps of a fleet's expectation propagation
 (``inference/ep.py``). Parameter checkpoints (``Parameterized.save``) are
-the JAX package's ``.npz`` format, readable by either package.
+the JAX package's ``.npz`` format, readable by either package. ``io``
+streams row files larger than host memory into training through a C++
+prefetching loader (built with ``g++`` at first use).
 
 A Model lives on ``[cuda] device`` unless the caller names a device; with
 no CUDA device, pass ``device="cpu"``.
@@ -45,6 +47,7 @@ from . import scoping
 from .batched import BatchedOptimizer
 from . import inference
 from . import models
+from . import io
 from . import interop
 
 # `hb.param.*` API surface, as in the JAX package's layout

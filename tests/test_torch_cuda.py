@@ -6,8 +6,12 @@ algorithms against torch.linalg, the exact-gram GPRMarginal evidence
 on the card against the CPU, each sampler on a Gaussian, the vmapped
 SparseGPC log_prob of 8 chains with the kernels against one without them,
 the SparseGPMulticlass evidence on the card against the CPU and its
-gradient against float64, and the samplers' evaluation captured as a CUDA
-graph where the target never reads the host and eager where it does.
+gradient against float64, the samplers' evaluation captured as a CUDA
+graph where the target never reads the host and eager where it does, the
+heteroscedastic fleet and the multi-output natural gradient on K1 and K2,
+streaming into a model on the card, and the JAX package's accuracy gates
+of the heteroscedastic, multi-output, deep GP, GP-LVM and Expert GPR
+families at its tests' step counts and limits.
 
 Every test carries the ``cuda`` marker and skips where torch finds no
 CUDA device; the decision is made inside each test. This file imports
@@ -651,3 +655,335 @@ def test_a_target_that_reads_the_host_runs_eagerly():
         torch.testing.assert_close(grad, -2.0 * scale * theta)
     assert vg.graphed is False
     assert logprob.CudaGraphed.replays == replays
+
+
+# ------------------------------------------ the remaining families, streaming
+def _hetero_fleet(dev, M=4):
+    thb.set_seed(0)
+    models = []
+    for i in range(M):
+        X, Y, _ = thb.models.make_hetero_dataset(n=120, seed=i)
+        models.append(thb.models.HeteroscedasticGPR(seed=i, X=X, Y=Y, device=dev))
+    return thb.BatchedOptimizer(models, "ELBO_analytic").compile(thb.adam(0.02))
+
+
+def test_hetero_fleet_kernels_on_matches_off():
+    """4 HeteroscedasticGPRs (n = 120) under BatchedOptimizer: each step
+    factors the two [4, 120, 120] grams on K1 and solves the two Murray
+    backwards' L^T systems on K2 (2 and 4 launches a step); 20 steps with
+    the kernels against 20 with use_kernels off, within 1e-4 of the
+    objective's scale."""
+    dev = _card()
+    hist = {}
+    for use_kernels in (True, False):
+        cfg = thb.settings.get_settings()
+        cfg.cuda.use_kernels = use_kernels
+        with thb.settings.temp_settings(cfg):
+            bo = _hetero_fleet(dev)
+            before = (cuda_chol.cholesky128_vbatched.launches,
+                      cuda_solve.tri_solve128_vbatched.launches)
+            bo.optimize(maxiter=20)
+            after = (cuda_chol.cholesky128_vbatched.launches,
+                     cuda_solve.tri_solve128_vbatched.launches)
+        assert after == ((before[0] + 40, before[1] + 80) if use_kernels else before)
+        hist[use_kernels] = np.concatenate(bo.history).astype(np.float64)
+    assert np.isfinite(hist[True]).all()
+    rel = np.abs(hist[True] - hist[False]).max() / np.abs(hist[False]).max()
+    assert rel <= 1e-4, rel
+
+
+def test_multioutput_natgrad_launches_k1_and_k2():
+    """MultiOutputGPR (n = 80, Q = 2) under natural_gradient(0.3): the
+    layered node's two pairs and the ladder stack to [6, 80, 80], factored
+    twice on K1 and inverted twice on K2 each step; the shared kernel's
+    own [80, 80] factor goes to torch.linalg."""
+    dev = _card()
+    thb.set_seed(0)
+    X, Y, _ = thb.models.make_multioutput_dataset(n=80, seed=0)
+    m = thb.models.MultiOutputGPR(seed=0, X=X, Y=Y, Q=2, device=dev)
+    opt = m.ELBO_analytic().compile(
+        thb.optimizers.natural_gradient(m, gamma=0.3, rest=thb.adam(0.02)))
+    before = (cuda_chol.cholesky128_vbatched.launches, cuda_solve.tri_solve128_vbatched.launches)
+    opt.optimize(maxiter=5)
+    after = (cuda_chol.cholesky128_vbatched.launches, cuda_solve.tri_solve128_vbatched.launches)
+    assert after == (before[0] + 10, before[1] + 10)
+    assert np.isfinite(np.concatenate(opt.history)).all()
+
+
+class _LinReg(thb.Model):
+    def setUp(self):
+        self.x = thb.MinibatchData(np.zeros((8, 3), np.float32))
+        self.y = thb.MinibatchData(np.zeros((8, 1), np.float32))
+        self.w = thb.Variable([3, 1], stddev=0.1)
+
+    @thb.AutoOptimize()
+    def obj(self):
+        return -torch.sum(torch.square(self.y - torch.matmul(self.x, self.w)))
+
+
+def test_streaming_into_a_model_on_the_card(tmp_path):
+    """optimize_streaming into a model on the card: at every megabatch
+    after the first, the device copy of the one before still equals, bit
+    for bit, what the loader handed out (the workers have refilled its
+    ring buffer since: the loader returns a host copy and the device copy
+    is synchronous), and the fit recovers the coefficients."""
+    dev = _card()
+    from henbun_tpu_torch.io import OutOfCoreLoader, optimize_streaming, write_dataset
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(20000, 3)).astype(np.float32)
+    Y = (X @ np.array([1.0, -2.0, 0.5], np.float32))[:, None] + 0.05 * rng.normal(
+        size=(20000, 1)).astype(np.float32)
+    path = str(tmp_path / "rows.f32")
+    n, row_floats, slices, _ = write_dataset(path, X, Y)
+    m = _LinReg(seed=0, device=dev)
+    opt = m.obj().compile(thb.adam(0.05))
+    handed, checked = [], []
+
+    class Recording:
+        def __init__(self, inner):
+            self.inner = inner
+
+        def next(self):
+            if handed:
+                dev_rows = torch.cat([m.x.device_value(), m.y.device_value()], 1)
+                assert dev_rows.device.type == "cuda"
+                assert np.array_equal(dev_rows.cpu().numpy(), handed[-1])
+                checked.append(True)
+            mega = self.inner.next()
+            handed.append(mega.copy())
+            return mega
+
+    cfg = thb.settings.get_settings()
+    cfg.cuda.scan_chunk = 100
+    with thb.settings.temp_settings(cfg), \
+            OutOfCoreLoader(path, n, row_floats, batch_rows=4096, n_buffers=2, seed=4) as dl:
+        optimize_streaming(opt, Recording(dl), slices, maxiter=1500, minibatch_size=64)
+    assert len(handed) == 15 and len(checked) == 14
+    assert np.allclose(m.w.value[:, 0], [1.0, -2.0, 0.5], atol=0.1)
+
+
+# The JAX package's accuracy gates, at its tests' step counts and limits
+def test_hetero_accuracy_gate_on_the_card():
+    """tests/test_hetero.py:46-63: n = 120, 3,000 Adam(0.02) steps of the
+    analytic ELBO; the mean within RMSE 0.25 of sin(x), the learned noise
+    profile rising (loud / quiet > 2)."""
+    dev = _card()
+    thb.set_seed(0)
+    X, Y, sd = thb.models.make_hetero_dataset(n=120, seed=0)
+    m = thb.models.HeteroscedasticGPR(seed=0, X=X, Y=Y, device=dev)
+    m.ELBO_analytic().compile(thb.adam(0.02)).optimize(maxiter=3000)
+    grid = np.linspace(0.2, 5.8, 40).reshape(-1, 1).astype(np.float32)
+    fmean, yvar = m.run(lambda mm: mm.predict_y(grid))
+    fmean = fmean.cpu().numpy()[:, 0]
+    rmse = np.sqrt(np.mean((fmean - np.sin(grid[:, 0])) ** 2))
+    assert rmse < 0.25, rmse
+    gmean, _ = m.run(lambda mm: mm.predict_g(grid))
+    learned_sd = np.exp(0.5 * gmean.cpu().numpy()[:, 0])
+    quiet = learned_sd[grid[:, 0] < 2.0].mean()
+    loud = learned_sd[grid[:, 0] > 4.0].mean()
+    assert loud / quiet > 2.0, (quiet, loud)
+    assert quiet < 0.2, quiet
+    assert 0.2 < loud < 0.9, loud
+
+
+W_TRUE = np.array([[1.0, 0.0], [0.8, 0.6], [-0.9, 0.4]], np.float32)
+
+
+def test_multioutput_accuracy_gates_on_the_card():
+    """tests/test_multioutput.py:46-69: n = 80, Q = 2, 4,000 Adam(0.02)
+    steps; each output within RMSE 0.2 of the generator at new inputs,
+    the implied output correlations of the generator's signs, each within
+    0.35."""
+    dev = _card()
+    thb.set_seed(0)
+    X, Y, F = thb.models.make_multioutput_dataset(n=80, seed=0)
+    m = thb.models.MultiOutputGPR(seed=0, X=X, Y=Y, Q=2, device=dev)
+    m.ELBO_analytic().compile(thb.adam(0.02)).optimize(maxiter=4000)
+    grid = np.linspace(0.2, 5.8, 40).reshape(-1, 1).astype(np.float32)
+    mean, var = m.run(lambda mm: mm.predict_y(grid))
+    mean = mean.cpu().numpy()
+    truth = np.concatenate([np.sin(grid), np.cos(grid)], 1) @ W_TRUE.T
+    for p in range(3):
+        rmse = np.sqrt(np.mean((mean[:, p] - truth[:, p]) ** 2))
+        assert rmse < 0.2, (p, rmse)
+    assert (var.cpu().numpy() > 0).all()
+    C = m.run(lambda mm: mm.output_correlation()).cpu().numpy()
+    B = W_TRUE @ W_TRUE.T
+    d = np.sqrt(np.diag(B))
+    C_true = B / np.outer(d, d)
+    for i in range(3):
+        for j in range(i):
+            assert np.sign(C[i, j]) == np.sign(C_true[i, j]), (i, j, C)
+            assert abs(C[i, j] - C_true[i, j]) < 0.35, (i, j, C, C_true)
+
+
+def test_multioutput_natgrad_beats_adam_on_the_card():
+    """tests/test_multioutput.py:100-129: n = 80, 800 steps each,
+    natural_gradient(0.3, rest=Adam(0.02)) ends more than 20 nats above
+    Adam(0.02)."""
+    dev = _card()
+    thb.set_seed(0)
+    X, Y, _ = thb.models.make_multioutput_dataset(n=80, seed=0)
+    m_ng = thb.models.MultiOutputGPR(seed=0, X=X, Y=Y, Q=2, device=dev)
+    opt_ng = m_ng.ELBO_analytic().compile(
+        thb.optimizers.natural_gradient(m_ng, gamma=0.3, rest=thb.adam(0.02)))
+    opt_ng.optimize(maxiter=800)
+    m_ad = thb.models.MultiOutputGPR(seed=0, X=X, Y=Y, Q=2, device=dev)
+    opt_ad = m_ad.ELBO_analytic().compile(thb.adam(0.02))
+    opt_ad.optimize(maxiter=800)
+    ng, ad = float(opt_ng.run()), float(opt_ad.run())
+    assert np.isfinite(ng) and np.isfinite(ad)
+    assert ng > ad + 20.0, (ng, ad)
+
+
+def test_deep_gp_accuracy_gates_on_the_card():
+    """tests/test_deepgp.py's fixture and gates: n = 400, m = 32, 6,000
+    Adam(0.01) steps in minibatches of 128 for the two-layer DGP and for
+    an SVGP with the same budget; the DGP's 64-draw mean within RMSE 0.1
+    of the step away from the jump, its plateaus within 0.06 of 0 and 1,
+    and below the SVGP's RMSE."""
+    dev = _card()
+    grid = np.linspace(-0.9, 0.9, 61).reshape(-1, 1).astype(np.float32)
+    truth = (grid > 0).astype(np.float32)[:, 0]
+    away = np.abs(grid[:, 0]) > 0.1
+
+    def rmse(pred):
+        return float(np.sqrt(np.mean((pred[away] - truth[away]) ** 2)))
+
+    thb.set_seed(0)
+    X, Y = thb.models.make_step_dataset(n=400, seed=0)
+    dgp = thb.models.DeepGPRegression(seed=0, X=X, Y=Y, num_inducing=32, device=dev)
+    dgp.ELBO().compile(thb.adam(0.01)).optimize(maxiter=6000, minibatch_size=128)
+    svgp = thb.models.SVGPRegression(seed=0, X=X, Y=Y, num_inducing=32, device=dev)
+    svgp.ELBO().compile(thb.adam(0.01)).optimize(maxiter=6000, minibatch_size=128)
+    dgp_mean = dgp.draws(lambda mm: mm.predict_f(grid), 64).mean(0)[:, 0].cpu().numpy()
+    svgp_mean = svgp.draws(lambda mm: mm.predict_f(grid)[0], 64).mean(0).cpu().numpy()
+    assert rmse(dgp_mean) < 0.1, rmse(dgp_mean)
+    assert abs(dgp_mean[grid[:, 0] < -0.3].mean() - 0.0) < 0.06
+    assert abs(dgp_mean[grid[:, 0] > 0.3].mean() - 1.0) < 0.06
+    assert rmse(dgp_mean) < rmse(svgp_mean), (rmse(dgp_mean), rmse(svgp_mean))
+
+
+def test_gplvm_accuracy_gates_on_the_card():
+    """tests/test_gplvm.py:27-38: n = 1,000, 3,000 Adam(0.01) steps in
+    minibatches of 128; the encoder's latent mean correlates with the
+    generating coordinate beyond 0.97 in magnitude, and the 64-draw
+    reconstruction is within RMSE 0.09 of the observations."""
+    dev = _card()
+    thb.set_seed(0)
+    Y, t_true = thb.models.make_curve_dataset(n=1000, seed=0)
+    m = thb.models.GPLVM(seed=0, Y=Y, d_z=1, num_inducing=16, hidden=32, device=dev)
+    m.ELBO().compile(thb.adam(0.01)).optimize(maxiter=3000, minibatch_size=128)
+    lat = m.run(lambda mm: mm.latent_mean(Y)).cpu().numpy()[:, 0]
+    corr = abs(np.corrcoef(lat, t_true)[0, 1])
+    assert corr > 0.97, corr
+    rec = m.draws(lambda mm: mm.reconstruct(Y), 64).mean(0).cpu().numpy()
+    rmse = np.sqrt(np.mean((rec - Y) ** 2))
+    assert rmse < 0.09, rmse
+
+
+def _exponential_decay_adam(init, transition, rate, end):
+    """Adam whose learning rate at update t is max(init rate^(t /
+    transition), end) (optax.exponential_decay with end_value, rate < 1)."""
+    def make(params):
+        opt = torch.optim.Adam(params, lr=init, betas=(0.9, 0.999), eps=1e-8)
+        count = [0]
+        step = opt.step
+
+        def scheduled_step(*a, **k):
+            for g in opt.param_groups:
+                g["lr"] = max(init * rate ** (count[0] / transition), end)
+            count[0] += 1
+            return step(*a, **k)
+
+        opt.step = scheduled_step
+        return opt
+
+    return make
+
+
+class _FixedExpertGPR(thb.Model):
+    """tests/test_accuracy_gates.py's FixedExpertGPR: the three-GP mixture
+    with fixed kernels and noise; only the variational posteriors train
+    (collection 'vi'), cold."""
+
+    NOISE_VAR = 0.01
+
+    def setUp(self, X, Y):
+        from henbun_tpu_torch.ops.linalg import matmul_hp
+
+        self._matmul = matmul_hp
+        self.X = thb.Data(X)
+        self.Y = thb.Data(Y)
+        self.q_s = thb.variationals.Gaussian(shape=list(X.shape), q_shape="fullrank",
+                                             collections=["vi"])
+        self.q_l = thb.variationals.Gaussian(shape=list(X.shape), q_shape="fullrank",
+                                             collections=["vi", "init_l"])
+        self.q_r = thb.variationals.Normal(shape=list(X.shape), q_shape="fullrank",
+                                           collections=["vi"])
+        self.kern_s = thb.gp.kernels.UnitRBF(np.array([0.15], np.float32))
+        self.kern_l = thb.gp.kernels.UnitRBF(np.array([1.0], np.float32))
+        self.kern_r = thb.gp.kernels.UnitRBF(np.array([0.6], np.float32))
+        for k in (self.kern_s, self.kern_l, self.kern_r):
+            k.lengthscales.collections = "frozen_hyp"
+
+    def gate(self):
+        return torch.sigmoid(self._matmul(self.kern_r.Cholesky(self.X), self.q_r) * 4.0)
+
+    def f_mixture(self):
+        f_s = self._matmul(self.kern_s.Cholesky(self.X), self.q_s)
+        f_l = self._matmul(self.kern_l.Cholesky(self.X), self.q_l)
+        frac = self.gate()
+        return frac * f_s + (1 - frac) * f_l
+
+    @thb.AutoOptimize()
+    def ELBO(self):
+        f = self.f_mixture()
+        return torch.sum(thb.densities.gaussian(self.Y, f, self.NOISE_VAR)) - self.KL()
+
+    @thb.AutoOptimize()
+    def ELBO_smooth(self):
+        f_l = self._matmul(self.kern_l.Cholesky(self.X), self.q_l)
+        return torch.sum(thb.densities.gaussian(self.Y, f_l, self.NOISE_VAR)) - self.KL("init_l")
+
+
+def test_expert_gpr_accuracy_gate_on_the_card():
+    """tests/test_accuracy_gates.py:218-288, the Expert GPR gate: n = 120,
+    the smooth-only baseline 3,000 Adam(0.02) steps on collection
+    'init_l'; the mixture 20,000 steps on 'vi' with the exponential-decay
+    Adam and 4 ELBO samples a step. The 200-draw mean mixture within RMSE
+    0.1 of the generating function, the ELBO within 90 nats of the
+    noise-limited ceiling and 1,000 above the single smooth GP, and the
+    posterior-mean gate separating the two regimes by more than 0.5."""
+    dev = _card()
+    thb.set_seed(0)
+    n = 120
+    rng = np.random.default_rng(0)
+    X = np.linspace(-1, 1, n).reshape(-1, 1).astype(np.float32)
+    true_gate = 1.0 / (1.0 + np.exp(-8 * X))
+    f_true = true_gate * (np.sin(14 * X) * 0.6) + (1 - true_gate) * (0.8 * X)
+    Y = (f_true + rng.normal(size=(n, 1)) * 0.1).astype(np.float32)
+
+    m_smooth = _FixedExpertGPR(seed=1, X=X, Y=Y, device=dev)
+    sm = m_smooth.ELBO_smooth().compile(thb.adam(0.02), collection="init_l")
+    sm.optimize(maxiter=3000)
+    elbo_single = float(np.mean([sm.run() for _ in range(20)]))
+
+    m = _FixedExpertGPR(seed=0, X=X, Y=Y, device=dev)
+    opt = m.ELBO().compile(_exponential_decay_adam(0.02, 3000, 0.5, 1e-3), collection="vi",
+                           num_elbo_samples=4)
+    opt.optimize(maxiter=20000)
+    elbo_mix = float(np.mean([opt.run() for _ in range(20)]))
+
+    f_mean = m.draws(lambda mm: mm.f_mixture(), 200)[:, :, 0].mean(0).cpu().numpy()
+    rmse = float(np.sqrt(np.mean((f_mean - f_true[:, 0]) ** 2)))
+    assert rmse < 0.1, rmse
+    ceiling = float(np.sum(-0.5 * np.log(2 * np.pi * _FixedExpertGPR.NOISE_VAR)
+                           - (Y - f_true) ** 2 / (2 * _FixedExpertGPR.NOISE_VAR)))
+    assert elbo_mix > ceiling - 90.0, (elbo_mix, ceiling)
+    assert elbo_mix > elbo_single + 1000.0, (elbo_mix, elbo_single)
+    g_mean = m.draws(lambda mm: mm.gate(), 200)[:, :, 0].mean(0).cpu().numpy()
+    left = float(g_mean[X[:, 0] < -0.5].mean())
+    right = float(g_mean[X[:, 0] > 0.5].mean())
+    assert abs(right - left) > 0.5, (left, right)
