@@ -120,6 +120,23 @@ Run from the root of a checkout. Phases, each of which fails the run:
    every megabatch row in the train split, the distinct rows read against
    sampling with replacement, each megabatch's device copy against what
    the loader handed out, steps/s against phase 10's in-core rate.
+26. serving: the per-latent MultiOutputGPR (n = 80, P = 3, Q = 2) fitted
+   as in phase 23, its predict_f exported batch-polymorphic for the CPU
+   and the card and saved under chiprun_out/, loaded in a fresh python3
+   that imports torch and henbun_tpu_torch.serving only and served at 5,
+   64, 100 and 200 points on both programs: each card answer equal to
+   the eager predict_f, the CPU program's to the card's, K1 and K2
+   launches per request (K2 none at 200 points); the GPRMarginal
+   predictor and a 32-draw sampler of GPR.predict_f (fullrank q; the same
+   seed, the same draws); the artifact call's ms against the eager one's;
+27. parallel: over a one-rank NCCL mesh, ShardedBatchedOptimizer on
+   phase 4's fleet for 20 steps against BatchedOptimizer under the same
+   noise (1e-6 relative, the same K1/K2 launches) and ShardedOptimizer on
+   the amortized path at minibatch 512, steps/s each against the
+   unsharded drivers; then two gloo ranks on the one card (spawned as
+   `chip_smoke.py --rank r 2 <dir>`), the minibatch amortized fit with
+   each rank's rows and noise injected, 10 steps, against the one-process
+   run on the union of the rows (1e-5 relative).
 Each of phases 21-24 is finite and rising and reports steps/s, host
 reads a step and a traced window's busy share; phase 21's main phase
 runs 1,000 steps where the example runs 10 x 1,000 (cut for time).
@@ -3094,6 +3111,328 @@ def streaming_phase(torch, hb, in_core_rate):
     return {"steps_per_s": rate, "busy": busy, "in_core": in_core_rate}
 
 
+SERVE_SIZES = (5, 64, 100, 200)  # 200 points: past K2's 128 columns
+SERVE_TIMING_N = 64
+SERVE_DRAWS = 32
+SERVE_FIT_STEPS = 50
+SHARD_FLEET_STEPS = 20
+SHARD_RATE_STEPS = 100
+SHARD_AMORT_STEPS = 200
+SHARD_MB = 512
+RANKS = 2
+RANKS_STEPS = 10
+RANKS_ROWS = 256                 # each rank's rows a step: 512 over the two
+
+# the phase-26 child: a fresh process that imports torch and the serving
+# module only, loads the saved artifact and serves each size on both
+# programs, counting K1 and K2 launches per request
+SERVE_CHILD = r"""
+import json, sys
+import numpy as np, torch
+from henbun_tpu_torch import serving
+art = serving.load(sys.argv[1])
+chol = sys.modules["henbun_tpu_torch.ops.cuda_chol"].cholesky128_vbatched
+solve = sys.modules["henbun_tpu_torch.ops.cuda_solve"].tri_solve128_vbatched
+out, launches = {}, {}
+for n in json.loads(sys.argv[2]):
+    x = np.linspace(-0.5, 6.5, n, dtype=np.float32)[:, None]
+    for dev in ("cuda", "cpu"):
+        chol.launches = solve.launches = 0
+        mean, var = art(torch.tensor(x, device=dev))
+        torch.cuda.synchronize()
+        launches["%s %d" % (dev, n)] = [chol.launches, solve.launches]
+        out["%s_%d" % (dev, n)] = torch.cat([mean, var], 1).cpu().numpy()
+mean, var = art(np.linspace(-0.5, 6.5, 16, dtype=np.float32)[:, None])
+assert mean.device.type == "cuda", "a numpy request ran the %s program" % mean.device.type
+assert "henbun_tpu_torch.models" not in sys.modules, "serving imported the models"
+np.savez(sys.argv[3], **out)
+print(json.dumps(launches))
+"""
+
+
+def serve_grid(n):
+    return np.linspace(-0.5, 6.5, n, dtype=np.float32)[:, None]
+
+
+def serving_phase(torch, hb):
+    """26 · serving: MultiOutputGPR at families_bench.py's widths (n = 80,
+    P = 3, Q = 2, per-latent kernels), fitted as phase 23 fits it; its
+    predict_f exported batch-polymorphic for ("cpu", "cuda") and saved
+    under chiprun_out/; loaded in a fresh python3 that imports torch and
+    henbun_tpu_torch.serving only (it asserts that the models were never
+    imported) and served at 5, 64, 100 and 200 points on both programs
+    (and once from numpy, which must run the card's program).
+    Each card answer equals the eager predict_f (rtol 1e-5, atol 1e-6),
+    the CPU program's equals the card's (1e-4 of the output's scale); K1
+    and K2 launch on the card for n* <= 128, and the 200-point solve goes
+    to torch.linalg (K2 0, K1 still factors the latent grams). Then the
+    GPRMarginal predictor (torch.linalg by design) and a 32-draw sampler
+    of GPR.predict_f with a fullrank q: the same seed gives bit-equal
+    draws, another seed other draws. The artifact call's ms against the
+    eager call's, from CUDA events."""
+    from henbun_tpu_torch import serving
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    opt = mo_natgrad(hb, shared_kernel=False)
+    opt.optimize(maxiter=SERVE_FIT_STEPS)
+    model = opt.model
+    t0 = time.perf_counter()
+    art = serving.export_predictor(model, "predict_f", np.zeros((8, 1), np.float32),
+                                   platforms=("cpu", "cuda"), batch_polymorphic=True)
+    export_s = time.perf_counter() - t0
+    path = os.path.join(out_dir, "serving_multioutput.pt2z")
+    art.save(path)
+    npz = os.path.join(out_dir, "serving_multioutput_served.npz")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", SERVE_CHILD, path, json.dumps(SERVE_SIZES), npz],
+                         env=dict(os.environ, PYTHONPATH=here), capture_output=True, text=True,
+                         timeout=600)
+    child_s = time.perf_counter() - t0
+    check(res.returncode == 0, "serving child failed:\n%s\n%s" % (res.stdout[-3000:],
+                                                                  res.stderr[-3000:]))
+    launches = json.loads(res.stdout.strip().splitlines()[-1])
+    served = np.load(npz)
+    rows = []
+    for n in SERVE_SIZES:
+        x = serve_grid(n)
+        mean, var = model.run(lambda mm: mm.predict_f(x))
+        eager = torch.cat([mean, var], 1).cpu().numpy()
+        card, cpu = served["cuda_%d" % n], served["cpu_%d" % n]
+        check(card.shape == (n, 6) and np.isfinite(card).all() and np.isfinite(cpu).all(),
+              "served n=%d: shape %r or not finite" % (n, card.shape))
+        err = float(np.max(np.abs(card - eager) - 1e-5 * np.abs(eager)))
+        check(err <= 1e-6, "served n=%d: card program vs eager predict_f beyond rtol 1e-5, "
+              "atol 1e-6 by %g" % (n, err))
+        rel = float(np.abs(cpu - card).max() / np.abs(card).max())
+        check(rel <= 1e-4, "served n=%d: CPU program vs card program %g of the scale" % (n, rel))
+        (k1, k2), (c1, c2) = launches["cuda %d" % n], launches["cpu %d" % n]
+        check(c1 == 0 and c2 == 0, "served n=%d: the CPU program launched a kernel" % n)
+        check(k1 > 0 and (k2 > 0 if n <= 128 else k2 == 0),
+              "served n=%d: K1=%d K2=%d launches on the card" % (n, k1, k2))
+        rows.append((n, k1, k2, err, rel))
+    xt = torch.tensor(serve_grid(SERVE_TIMING_N), device="cuda")
+    art_ms = time_ms(torch, lambda: art(xt), iters=20, warmup=3)
+    eager_ms = time_ms(torch, lambda: model.run(lambda mm: mm.predict_f(xt)), iters=20, warmup=3)
+    print("serving: MultiOutputGPR n=%d P=3 Q=%d per-latent; export %.2f s (cpu + cuda), artifact "
+          "%d bytes, fresh-process load and serve %.1f s; %s; at %d points artifact_ms=%.3f "
+          "eager_ms=%.3f"
+          % (MO_N, MO_Q, export_s, os.path.getsize(path), child_s,
+             "; ".join("n=%d K1=%d K2=%d beyond-tol=%.2g cpu-vs-card=%.2g" % r for r in rows),
+             SERVE_TIMING_N, art_ms, eager_ms))
+
+    hb.set_seed(0)
+    X, Y = hb.models.make_sine_dataset(n=N, seed=0)
+    gm = hb.models.GPRMarginal(seed=0, X=X, Y=Y)
+    gm.log_marginal().compile(hb.adam(0.05)).optimize(maxiter=SERVE_FIT_STEPS)
+    gart = serving.export_predictor(gm, "predict_f", np.zeros((8, 1), np.float32),
+                                    platforms=("cpu", "cuda"), batch_polymorphic=True)
+    for n in (1, 64, 200):
+        x = serve_grid(n)
+        got = torch.cat(gart(torch.tensor(x, device="cuda")), 1).cpu().numpy()
+        want = torch.cat(gm.run(lambda mm: mm.predict_f(x)), 1).cpu().numpy()
+        check(np.all(np.abs(got - want) <= 1e-6 + 1e-5 * np.abs(want)),
+              "GPRMarginal artifact n=%d vs eager" % n)
+    g_art_ms = time_ms(torch, lambda: gart(xt), iters=20, warmup=3)
+    g_eager_ms = time_ms(torch, lambda: gm.run(lambda mm: mm.predict_f(xt)), iters=20, warmup=3)
+
+    q = hb.models.GPR(seed=0, X=X, Y=Y, q_shape="fullrank")
+    q.ELBO_gaussian().compile(hb.adam(0.02)).optimize(maxiter=SERVE_FIT_STEPS)
+    grid = np.linspace(0, 6, 50, dtype=np.float32)[:, None]
+    t0 = time.perf_counter()
+    sampler = serving.export_sampler(q, hb.models.GPR.predict_f, SERVE_DRAWS, grid,
+                                     platforms=("cpu", "cuda"))
+    sampler_s = time.perf_counter() - t0
+    xg = torch.tensor(grid, device="cuda")
+    s0, s1, s2 = sampler(7, xg), sampler(7, xg), sampler(8, xg)
+    check(tuple(s0.shape) == (SERVE_DRAWS, 50, 1) and bool(torch.isfinite(s0).all()),
+          "sampler artifact: shape %r or not finite" % (tuple(s0.shape),))
+    check(bool(torch.equal(s0, s1)), "sampler artifact: the same seed gave other draws")
+    check(float((s0 - s2).abs().max()) > 1e-6, "sampler artifact: another seed, the same draws")
+    s_np = sampler(7, grid)
+    check(s_np.device.type == "cuda" and bool(torch.equal(s_np, s0)),
+          "sampler artifact: a numpy request did not run the card's program")
+    s_ms = time_ms(torch, lambda: sampler(7, xg), iters=20, warmup=3)
+    print("serving: GPRMarginal n=%d artifact_ms=%.3f eager_ms=%.3f at %d points; GPR fullrank "
+          "sampler %d draws x 50 points: export %.2f s, call_ms=%.3f, band %.3f"
+          % (N, g_art_ms, g_eager_ms, SERVE_TIMING_N, SERVE_DRAWS, sampler_s, s_ms,
+             float(2 * s0[:, :, 0].std(0).mean())))
+    return {"launches": {n: (k1, k2) for n, k1, k2, _, _ in rows}, "artifact_ms": art_ms,
+            "eager_ms": eager_ms}
+
+
+def parallel_phase(torch, hb):
+    """27 · parallel on the card. World size 1 over NCCL (the one-rank
+    group make_mesh starts): ShardedBatchedOptimizer on phase 4's 16-model
+    fleet for 20 steps under injected noise against BatchedOptimizer
+    (within 1e-6 relative, the same K1 and K2 launches a step), and
+    ShardedOptimizer on the amortized path (phase 10's model, minibatch
+    512) against the plain driver, steps/s each (the fleet's from 100
+    more steps, after NCCL's lazy set-up). Then two ranks on the one
+    card over gloo with CUDA tensors (NCCL refuses two ranks on one
+    device), spawned from the phase: the same minibatch amortized fit with
+    each rank's rows and noise injected, 10 steps, against the
+    one-process run on the union of the rows (rtol 1e-5); then the same
+    with the noise drawn, against the one-process run drawing its own."""
+    import tempfile
+
+    import torch.distributed as dist
+    from henbun_tpu_torch import parallel
+
+    mesh = parallel.make_mesh()
+    check(dist.get_backend() == "nccl" and tuple(mesh.shape) == (1, 1),
+          "world-1 mesh: backend %s shape %r" % (dist.get_backend(), tuple(mesh.shape)))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2727)
+    noise_of = [{"q": torch.randn(FLEET, N, generator=g, device="cuda")}
+                for _ in range(SHARD_FLEET_STEPS)]
+    method, lr = FLEETS["gpr"]
+    fleets = {}
+    for sharded in (False, True):
+        models = make_models(hb, "cuda", "gpr")
+        bo = (parallel.ShardedBatchedOptimizer(models, method, mesh=mesh) if sharded
+              else hb.BatchedOptimizer(models, method))
+        bo.compile(learning_rate=lr)
+        bo.noise_source = lambda step: noise_of[step]
+        hist, _, launches = run_path(torch, hb, bo, SHARD_FLEET_STEPS)
+        # steps/s from a second run: the first holds NCCL's lazy set-up
+        bo.noise_source = None
+        _, seconds, _ = run_path(torch, hb, bo, SHARD_RATE_STEPS)
+        fleets[sharded] = (hist, SHARD_RATE_STEPS / seconds, launches)
+    rel = float(np.max(np.abs(fleets[True][0] - fleets[False][0]) / np.abs(fleets[False][0])))
+    check(rel <= 1e-6, "sharded fleet vs BatchedOptimizer: %g relative" % rel)
+    for k in ("K1", "K2"):
+        check(fleets[True][2][k] == fleets[False][2][k] > 0,
+              "sharded fleet %s launches %d vs %d" % (k, fleets[True][2][k], fleets[False][2][k]))
+    print("parallel: world 1 nccl; fleet %dx%d %d steps sharded vs BatchedOptimizer max rel %.3g, "
+          "K1/K2 a step %.2f/%.2f (both), steps_per_s over %d more steps sharded=%.1f "
+          "unsharded=%.1f"
+          % (FLEET, N, SHARD_FLEET_STEPS, rel, fleets[True][2]["K1"] / SHARD_FLEET_STEPS,
+             fleets[True][2]["K2"] / SHARD_FLEET_STEPS, SHARD_RATE_STEPS, fleets[True][1],
+             fleets[False][1]))
+
+    X, Y = hb.models.make_synthetic_regression(n=AMORT_N, d_x=8, seed=0)
+    amort = {}
+    for sharded in (False, True):
+        hb.set_seed(0)
+        m = hb.models.AmortizedRegression(seed=0, X=X, Y=Y, d_z=4, hidden=64)
+        opt = parallel.ShardedOptimizer(m, "ELBO", mesh=mesh) if sharded else m.ELBO()
+        opt.compile(hb.adam(0.003))
+        hist, seconds, _ = run_path(torch, hb, opt, SHARD_AMORT_STEPS, minibatch_size=SHARD_MB)
+        check_rises(hist / AMORT_N, "sharded amortized" if sharded else "amortized", 50)
+        amort[sharded] = SHARD_AMORT_STEPS / seconds
+    dist.destroy_process_group()
+    print("parallel: world 1 nccl; amortized n=%d minibatch %d, %d steps: steps_per_s "
+          "ShardedOptimizer=%.1f Optimizer=%.1f"
+          % (AMORT_N, SHARD_MB, SHARD_AMORT_STEPS, amort[True], amort[False]))
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    rng = np.random.default_rng(27)
+    local_n = (AMORT_N - AMORT_N // 10) // RANKS
+    pos = rng.integers(0, local_n, (RANKS, RANKS_STEPS, RANKS_ROWS))
+    u = rng.standard_normal((RANKS_STEPS, RANKS * RANKS_ROWS, 4)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as d:
+        np.savez(os.path.join(d, "inputs.npz"), pos=pos, noise=u)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r),
+                                   str(RANKS), d], env=dict(os.environ, PYTHONPATH=here),
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(RANKS)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        spawn_s = time.perf_counter() - t0
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, "rank %d failed:\n%s" % (r, log[-4000:]))
+        out = [torch.load(os.path.join(d, "rank%d.pt" % r), weights_only=False)
+               for r in range(RANKS)]
+    union = np.concatenate([o["rows"] for o in out], axis=1)
+    noise_card = torch.tensor(u, device="cuda")
+    worst, one_s = {}, None
+    for case in ("injected", "drawn"):
+        hb.set_seed(0)
+        m = hb.models.AmortizedRegression(seed=0, X=X, Y=Y, d_z=4, hidden=64)
+        opt = m.ELBO().compile(hb.adam(0.003))
+        opt.row_source = lambda s: union[s]
+        if case == "injected":
+            opt.noise_source = lambda s: {"z": noise_card[s]}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.optimize(maxiter=RANKS_STEPS, minibatch_size=RANKS * RANKS_ROWS)
+        torch.cuda.synchronize()
+        one_s = one_s or time.perf_counter() - t0
+        want = opt.history[-1]
+        worst[case] = 0.0
+        for o in out:
+            check(o["backend"] == "gloo" and o["device"].startswith("cuda"),
+                  "rank ran on %s over %s" % (o["device"], o["backend"]))
+            got = o[case]
+            worst[case] = max(worst[case], float(np.max(np.abs(got["hist"] - want)
+                                                        / np.abs(want))))
+            for k, v in m.param_dict().items():
+                ref = v.detach().cpu().numpy()
+                worst_p = float(np.max(np.abs(got["params"][k] - ref))
+                                / max(np.abs(ref).max(), 1e-6))
+                check(worst_p <= 1e-5, "2-rank %s (noise %s) vs one process: %g of the scale"
+                      % (k, case, worst_p))
+        check(worst[case] <= 1e-5, "2-rank objectives (noise %s) vs one process on the union: "
+              "%g relative" % (case, worst[case]))
+    print("parallel: 2 ranks gloo on one card, amortized n=%d, %d rows a rank, %d steps: "
+          "objective max rel vs one process %.3g (noise injected), %.3g (noise drawn); spawn to "
+          "results %.1f s; steps_per_s ranks=%s one_process=%.1f"
+          % (AMORT_N, RANKS_ROWS, RANKS_STEPS, worst["injected"], worst["drawn"], spawn_s,
+             "/".join("%.1f" % (RANKS_STEPS / o["injected"]["seconds"]) for o in out),
+             RANKS_STEPS / one_s))
+    return {"fleet": fleets, "amortized": amort}
+
+
+def rank_main(rank, world, directory):
+    """One rank of phase 27's two-rank run: gloo over a FileStore in
+    `directory`, CUDA tensors, this rank's rows injected, its noise
+    injected and then drawn."""
+    import torch
+    import torch.distributed as dist
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import henbun_tpu_torch as hb
+    from henbun_tpu_torch import parallel
+
+    parallel.initialize_distributed("file://" + os.path.join(directory, "store"), world, rank,
+                                    backend="gloo")
+    mesh = parallel.make_mesh(device_type="cuda")
+    inp = np.load(os.path.join(directory, "inputs.npz"))
+    pos = inp["pos"][rank]
+    k = pos.shape[1]
+    noise = torch.tensor(inp["noise"][:, rank * k:(rank + 1) * k], device="cuda")
+    X, Y = hb.models.make_synthetic_regression(n=AMORT_N, d_x=8, seed=0)
+    out = {}
+    for drawn in (False, True):  # the noise injected, then drawn
+        hb.set_seed(0)
+        m = hb.models.AmortizedRegression(seed=0, X=X, Y=Y, d_z=4, hidden=64)
+        opt = parallel.ShardedOptimizer(m, "ELBO", mesh=mesh).compile(hb.adam(0.003))
+        opt.row_source = lambda s: pos[s]
+        if not drawn:
+            opt.noise_source = lambda s: {"z": noise[s]}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.optimize(maxiter=RANKS_STEPS, minibatch_size=world * k)
+        torch.cuda.synchronize()
+        out["drawn" if drawn else "injected"] = {
+            "hist": opt.history[-1], "seconds": time.perf_counter() - t0,
+            "params": {p: v.detach().cpu().numpy() for p, v in m.param_dict().items()}}
+    local_n = len(m._index._train_index) // world
+    out.update(backend=dist.get_backend(), device=str(noise.device),
+               rows=m._index._train_index[rank * local_n + pos[:RANKS_STEPS]])
+    torch.save(out, os.path.join(directory, "rank%d.pt" % rank))
+    dist.destroy_process_group()
+
+
 def all_counters():
     from henbun_tpu_torch.ops import cuda_chol, cuda_wide
 
@@ -3183,7 +3522,8 @@ def main():
     for name, phase in (("expert", expert_phase), ("hetero", hetero_phase),
                         ("multioutput", multioutput_phase), ("deep", deep_phase),
                         ("streaming", lambda torch, hb: streaming_phase(
-                            torch, hb, amortized["diagonal"]["steps_per_s"]))):
+                            torch, hb, amortized["diagonal"]["steps_per_s"])),
+                        ("serving", serving_phase), ("parallel", parallel_phase)):
         t0 = time.perf_counter()
         families[name] = phase(torch, hb)
         print("%s phase: %.1f s" % (name, time.perf_counter() - t0))
@@ -3285,4 +3625,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 5 and sys.argv[1] == "--rank":
+        rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

@@ -12,7 +12,11 @@ first two, and so do the sweeps of a fleet's expectation propagation
 (``inference/ep.py``). Parameter checkpoints (``Parameterized.save``) are
 the JAX package's ``.npz`` format, readable by either package. ``io``
 streams row files larger than host memory into training through a C++
-prefetching loader (built with ``g++`` at first use).
+prefetching loader (built with ``g++`` at first use). ``serving`` exports
+a fitted model's prediction as a self-contained ``torch.export`` program
+(K1 and K2 are ``torch.library`` custom ops, ``ops/library.py``), and
+``parallel`` shards training and the samplers' chains over a
+``torch.distributed`` device mesh.
 
 A Model lives on ``[cuda] device`` unless the caller names a device; with
 no CUDA device, pass ``device="cpu"``.
@@ -46,9 +50,10 @@ from . import batched
 from . import scoping
 from .batched import BatchedOptimizer
 from . import inference
-from . import models
 from . import io
 from . import interop
+from . import parallel
+from . import serving
 
 # `hb.param.*` API surface, as in the JAX package's layout
 from . import param
@@ -63,3 +68,14 @@ ParamList = _core_param.ParamList
 Data = _core_param.Data
 MinibatchData = _core_param.MinibatchData
 graph_key = _core_param.graph_key
+
+
+def __getattr__(name):
+    """``models`` is imported at first use, so a process that only loads
+    and serves an exported artifact (``serving``) never imports the model
+    families."""
+    if name == "models":
+        import importlib
+
+        return importlib.import_module(".models", __name__)
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))

@@ -80,7 +80,12 @@ class TraceContext:
     def node_noise(self, path, shape, dtype):
         """Standard-normal noise of ``shape`` for the node at ``path``: the
         injected tensor when the caller handed one in for that path, else a
-        fresh draw from the context's generator."""
+        fresh draw from the context's generator. A ``noise`` object with a
+        ``draw`` method (``core/counter.py``'s, in an exported program)
+        draws every path itself, at a shape that may be symbolic."""
+        draw = getattr(self.noise, "draw", None)
+        if draw is not None:
+            return draw(path, tuple(shape), dtype)
         shape = tuple(int(s) for s in shape)
         if path in self.noise:
             u = self.noise[path]

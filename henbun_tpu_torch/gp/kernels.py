@@ -24,6 +24,11 @@ def _float_type():
     return settings.dtypes.float_type
 
 
+def cholesky_jitter(n):
+    """The base jitter of an n x n gram's factorization (Kern.Cholesky)."""
+    return settings.numerics.jitter_level * max(1.0, n / 96.0)
+
+
 class Kern(Parameterized):
     """The basic kernel class; K, Kdiag and Cholesky show as named ranges
     in a profiler trace.
@@ -49,9 +54,7 @@ class Kern(Parameterized):
         :func:`safe_cholesky`, with the base jitter scaled by
         max(1, n / 96): float32 factorization error grows with n, and the
         gradient NaNs before the forward pass does."""
-        n = X.shape[-2]
-        jitter = settings.numerics.jitter_level * max(1.0, n / 96.0)
-        return safe_cholesky(self.K(X), jitter)
+        return safe_cholesky(self.K(X), cholesky_jitter(X.shape[-2]))
 
 
 class UnitStationary(Kern):

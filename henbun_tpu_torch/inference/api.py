@@ -13,7 +13,7 @@ import torch
 from . import chees as _chees
 from . import hmc as _hmc
 from . import nuts as _nuts
-from .logprob import check_mesh, make_log_prob
+from .logprob import make_log_prob
 
 _SAMPLERS = {"hmc": _hmc, "nuts": _nuts, "chees": _chees}
 
@@ -33,7 +33,9 @@ def sample_posterior(model, method, num_chains=8, num_samples=1000, num_warmup=5
       improper density (no prior on z). Pass None to sample every global.
     - generator: a torch.Generator on the model's device for the chain
       initialization and the sampler (default: the model's own).
-    - mesh: only None (chain sharding is not ported).
+    - mesh: a DeviceMesh whose ``chain`` dimension splits the chains;
+      every rank draws the same initialization (the same generator seed
+      on every rank) and gets every chain back.
 
     Returns (result, posterior): the sampler's NamedTuple and a dict of
     each tree path's constrained-space samples (numpy, leading axes
@@ -44,7 +46,6 @@ def sample_posterior(model, method, num_chains=8, num_samples=1000, num_warmup=5
     """
     if sampler not in _SAMPLERS:
         raise ValueError("sampler must be one of %s" % sorted(_SAMPLERS))
-    check_mesh(mesh)
     if collection == "__default__":
         from ..core.param import graph_key
 
@@ -56,7 +57,8 @@ def sample_posterior(model, method, num_chains=8, num_samples=1000, num_warmup=5
         device=flp.initial.device,
     )
     res = _SAMPLERS[sampler].sample(
-        flp.log_prob, init, g, num_samples=num_samples, num_warmup=num_warmup, **kwargs
+        flp.log_prob, init, g, num_samples=num_samples, num_warmup=num_warmup, mesh=mesh,
+        **kwargs
     )
     flat = res.samples.detach().cpu().numpy()  # [S, C, dim]
     lookup = {v.path_to(model): v for v in model.get_variables()}

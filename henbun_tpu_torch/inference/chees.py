@@ -24,7 +24,8 @@ from typing import NamedTuple
 import torch
 
 from .hmc import _da_init, _da_update, _leapfrog, _stack
-from .logprob import batched_value_and_grad, check_mesh, make_generator
+from ..parallel.chains import ChainShard
+from .logprob import batched_value_and_grad, make_generator
 
 
 class ChEESResult(NamedTuple):
@@ -106,19 +107,26 @@ def sample(log_prob, init, generator=None, num_samples=1000, num_warmup=500,
 
     init: [num_chains, dim], at least 2 chains (the criterion uses
     cross-chain means); generator: a torch.Generator on init's device or
-    an int seed; mesh: only None. Returns ChEESResult."""
-    check_mesh(mesh)
+    an int seed; mesh: a DeviceMesh whose ``chain`` dimension splits the
+    chains (``parallel/chains.py``): each warmup iteration gathers the
+    per-chain values the cross-chain mean accept rate, the trajectory
+    criterion and the pooled mass matrix need, in one all-gather.
+    Returns ChEESResult, every chain on every rank."""
     init = torch.atleast_2d(torch.as_tensor(init))
     num_chains, dim = init.shape
     if num_chains < 2:
         raise ValueError("ChEES-HMC needs at least 2 chains")
+    sh = ChainShard(mesh, num_chains)
+    init = sh.local(init)
+    nc = sh.local_n
     dev, dt = init.device, init.dtype
     g = make_generator(generator, dev)
     vg = batched_value_and_grad(log_prob)
 
     def draws():
         z = torch.randn((num_chains, dim), generator=g, dtype=dt, device=dev)
-        return z, torch.rand((num_chains,), generator=g, dtype=dt, device=dev)
+        u = torch.rand((num_chains,), generator=g, dtype=dt, device=dev)
+        return sh.local(z), sh.local(u)
 
     theta = init
     logp, grad = vg(theta)
@@ -126,8 +134,9 @@ def sample(log_prob, init, generator=None, num_samples=1000, num_warmup=500,
     log_traj = torch.log(torch.tensor(initial_traj_length, dtype=dt, device=dev))
     zero = torch.zeros((), dtype=dt, device=dev)
     tr_adam = (zero, zero, zero)
-    w_mean = torch.zeros((num_chains, dim), dtype=dt, device=dev)
-    w_m2 = torch.zeros((num_chains, dim), dtype=dt, device=dev)
+    w_mean = torch.zeros((nc, dim), dtype=dt, device=dev)
+    w_m2 = torch.zeros((nc, dim), dtype=dt, device=dev)
+    w_m2_all = w_m2  # every chain's, as of the last iteration
     ones = torch.ones((dim,), dtype=dt, device=dev)
     lo, hi = torch.log(torch.tensor(1e-2)).item(), torch.log(torch.tensor(1e3)).item()
     for it in range(int(num_warmup)):
@@ -135,24 +144,26 @@ def sample(log_prob, init, generator=None, num_samples=1000, num_warmup=500,
         eps = torch.exp(da.log_eps)
         traj = torch.exp(log_traj)
         n_steps = int(_steps_from(traj, eps, it, max_leapfrog))  # one host read
-        inv_mass_now = (torch.mean(w_m2, 0) / max(count - 1.0, 1.0)
+        inv_mass_now = (torch.mean(w_m2_all, 0) / max(count - 1.0, 1.0)
                         if adapt_mass and count > 10.0 else ones)
         theta, logp, grad, accept, theta_prop, vel_prop = _chain_step(
             vg, theta, logp, grad, *draws(), eps, inv_mass_now, n_steps
         )
-        da = _da_update(da, torch.mean(accept), target=target_accept)
-        g_log = _traj_gradient(theta, theta_prop, vel_prop, accept, traj)
-        tr_adam, log_traj = _adam_update(tr_adam, g_log, log_traj, traj_learning_rate)
-        log_traj = torch.clamp(log_traj, lo, hi)
-        # Welford for the mass matrix (per dimension, pooled over chains)
+        # Welford for the mass matrix (per chain; pooled over the chains)
         count = count + 1.0
         delta = theta - w_mean
         w_mean = w_mean + delta / count
         w_m2 = w_m2 + delta * (theta - w_mean)
+        theta_all, prop_all, vel_all, accept_all, w_m2_all = sh.gather_rows(
+            theta, theta_prop, vel_prop, accept, w_m2)
+        da = _da_update(da, torch.mean(accept_all), target=target_accept)
+        g_log = _traj_gradient(theta_all, prop_all, vel_all, accept_all, traj)
+        tr_adam, log_traj = _adam_update(tr_adam, g_log, log_traj, traj_learning_rate)
+        log_traj = torch.clamp(log_traj, lo, hi)
     eps = torch.exp(da.log_eps_bar)
     traj = torch.exp(log_traj)
     if adapt_mass:
-        var = torch.mean(w_m2, 0) / max(float(num_warmup) - 1.0, 1.0)
+        var = torch.mean(w_m2_all, 0) / max(float(num_warmup) - 1.0, 1.0)
         inv_mass = torch.where(var > 0, var, 1.0)
     else:
         inv_mass = ones
@@ -166,5 +177,6 @@ def sample(log_prob, init, generator=None, num_samples=1000, num_warmup=500,
         )
         samples.append(theta)
         accepts.append(accept)
-    return ChEESResult(_stack(samples, (0, num_chains, dim), theta),
-                       _stack(accepts, (0, num_chains), logp), eps, traj, inv_mass, logp)
+    return ChEESResult(sh.gather(_stack(samples, (0, nc, dim), theta), 1),
+                       sh.gather(_stack(accepts, (0, nc), logp), 1), eps, traj, inv_mass,
+                       sh.gather(logp))

@@ -19,7 +19,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .logprob import batched_value_and_grad, check_mesh, make_generator
+from ..parallel.chains import ChainShard
+from .logprob import batched_value_and_grad, make_generator
 
 
 class HMCResult(NamedTuple):
@@ -122,13 +123,19 @@ def sample(log_prob, init, generator=None, num_samples=1000, num_warmup=500,
       [num_leapfrog / 2, num_leapfrog] each iteration (shared by the
       chains). With a fixed count, a chain whose adapted (eps, mass) lands
       near a leapfrog resonance bounces between +-x forever.
-    - mesh: only None (chain sharding is not ported).
+    - mesh: a DeviceMesh (``parallel.make_mesh``): each rank runs its
+      block of the chains over the ``chain`` dimension, with the same
+      generator seed on every rank (``parallel/chains.py``); the result
+      holds every chain on every rank. HMC's chains share nothing, so no
+      collective runs before the final gather.
 
     Returns an HMCResult with samples [num_samples, num_chains, dim].
     """
-    check_mesh(mesh)
     init = torch.atleast_2d(torch.as_tensor(init))
     num_chains, dim = init.shape
+    sh = ChainShard(mesh, num_chains)
+    init = sh.local(init)
+    nc = sh.local_n
     dev, dt = init.device, init.dtype
     g = make_generator(generator, dev)
     vg = batched_value_and_grad(log_prob)
@@ -136,13 +143,14 @@ def sample(log_prob, init, generator=None, num_samples=1000, num_warmup=500,
 
     def draws():
         z = torch.randn((num_chains, dim), generator=g, dtype=dt, device=dev)
-        return z, torch.rand((num_chains,), generator=g, dtype=dt, device=dev)
+        u = torch.rand((num_chains,), generator=g, dtype=dt, device=dev)
+        return sh.local(z), sh.local(u)
 
     theta = init
     logp, grad = vg(theta)
-    da = _da_init(torch.full((num_chains,), initial_step_size, dtype=dt, device=dev))
-    w_mean = torch.zeros((num_chains, dim), dtype=dt, device=dev)
-    w_m2 = torch.zeros((num_chains, dim), dtype=dt, device=dev)
+    da = _da_init(torch.full((nc,), initial_step_size, dtype=dt, device=dev))
+    w_mean = torch.zeros((nc, dim), dtype=dt, device=dev)
+    w_m2 = torch.zeros((nc, dim), dtype=dt, device=dev)
     ones = torch.ones_like(w_m2)
     for it in range(int(num_warmup)):
         count = float(it)
@@ -171,8 +179,9 @@ def sample(log_prob, init, generator=None, num_samples=1000, num_warmup=500,
         if (it + 1) % thin == 0:
             samples.append(theta)
             accepts.append(accept_prob)
-    return HMCResult(_stack(samples, (0, num_chains, dim), theta),
-                     _stack(accepts, (0, num_chains), logp), eps, inv_mass, logp)
+    return HMCResult(sh.gather(_stack(samples, (0, nc, dim), theta), 1),
+                     sh.gather(_stack(accepts, (0, nc), logp), 1), sh.gather(eps),
+                     sh.gather(inv_mass), sh.gather(logp))
 
 
 def _stack(rows, empty_shape, like):

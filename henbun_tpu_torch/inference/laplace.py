@@ -77,7 +77,17 @@ def _grad_and_curvature(loglik_fn, f):
     """(d loglik / df, -d2 loglik / df^2), both [n, 1], in one
     forward-over-reverse pass: the likelihood factorizes over datapoints,
     so its Hessian is diagonal and the Hessian-times-ones product of the
-    gradient is that diagonal."""
+    gradient is that diagonal.
+
+    Under ``torch.export`` (a served program, no gradient to carry) the
+    same two derivatives come from two reverse passes of autograd on a
+    detached f: torch.export cannot replay the functorch transforms."""
+    if torch.compiler.is_exporting():
+        with torch.enable_grad():
+            x = f.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(torch.sum(loglik_fn(x)), x, create_graph=True)
+            (hv,) = torch.autograd.grad(torch.sum(g), x)
+        return g.detach(), -hv
     g, hv = torch.func.jvp(
         torch.func.grad(_ll_sum(loglik_fn)), (f,), (torch.ones_like(f),)
     )

@@ -213,16 +213,6 @@ def _synchronizes(fn, theta):
     return False
 
 
-def check_mesh(mesh):
-    """The samplers take ``mesh=None`` only: chain sharding over a device
-    mesh waits for ``parallel/`` (ROADMAP Queue 1, item 12)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: chain sharding needs the parallel/ package, which is not "
-            "ported yet (ROADMAP Queue 1, item 12); pass mesh=None"
-        )
-
-
 def make_generator(generator, device):
     """A torch.Generator on `device`: the one given, or one seeded by the
     given int (0 when None)."""

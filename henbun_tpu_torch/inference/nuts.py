@@ -35,7 +35,8 @@ import numpy as np
 import torch
 
 from .hmc import _da_init, _da_update, _stack
-from .logprob import batched_value_and_grad, check_mesh, make_generator
+from ..parallel.chains import ChainShard
+from .logprob import batched_value_and_grad, make_generator
 
 
 class NUTSResult(NamedTuple):
@@ -81,7 +82,7 @@ class _Tree(NamedTuple):
 
 
 def _build_subtree(vg, depth, theta0, r0, grad0, eps_signed, inv_mass, energy0,
-                   max_depth, active, g):
+                   max_depth, active, g, sh):
     """Integrate 2^depth leapfrog steps from (theta0, r0) for every chain,
     with checkpointed U-turn checks; a chain stops (its state frozen) at
     its first turning or diverging leaf, or where `active` is off."""
@@ -111,7 +112,7 @@ def _build_subtree(vg, depth, theta0, r0, grad0, eps_signed, inv_mass, energy0,
         delta = torch.where(torch.isnan(delta), -torch.inf, delta)
         # progressive multinomial proposal within the subtree
         lsw_new = torch.logaddexp(lsw, delta)
-        u = torch.rand((C,), generator=g, dtype=dt, device=dev)
+        u = sh.local(torch.rand((sh.n,), generator=g, dtype=dt, device=dev))
         take = go & (torch.log(u) < delta - lsw_new)
         theta_prop = torch.where(take[:, None], th, theta_prop)
         grad_prop = torch.where(take[:, None], gr, grad_prop)
@@ -139,12 +140,13 @@ def _build_subtree(vg, depth, theta0, r0, grad0, eps_signed, inv_mass, energy0,
                  sum_accept, n_leaves)
 
 
-def _transition(vg, theta, logp, grad, eps, inv_mass, max_tree_depth, g):
-    """One NUTS transition of every chain; eps [C], inv_mass [C, dim].
+def _transition(vg, theta, logp, grad, eps, inv_mass, max_tree_depth, g, sh):
+    """One NUTS transition of every chain of this rank (sh: its block of
+    the chains, ``parallel/chains.py``); eps [C], inv_mass [C, dim].
     Returns (theta, logp, grad, accept_stat, n_leapfrog)."""
     C, dim = theta.shape
     dt, dev = theta.dtype, theta.device
-    z = torch.randn((C, dim), generator=g, dtype=dt, device=dev)
+    z = sh.local(torch.randn((sh.n, dim), generator=g, dtype=dt, device=dev))
     r0 = z / torch.sqrt(inv_mass)
     energy0 = -logp + 0.5 * torch.sum(inv_mass * r0**2, -1)
     s = dict(
@@ -160,9 +162,9 @@ def _transition(vg, theta, logp, grad, eps, inv_mass, max_tree_depth, g):
     )
     for depth in range(int(max_tree_depth)):
         active = ~(s["turning"] | s["diverging"])
-        if depth > 0 and not bool(active.any()):  # one host read a doubling
+        if depth > 0 and not bool(sh.any(active.any())):  # one host read a doubling
             break
-        go_right = torch.rand((C,), generator=g, dtype=dt, device=dev) < 0.5
+        go_right = sh.local(torch.rand((sh.n,), generator=g, dtype=dt, device=dev)) < 0.5
         right = go_right[:, None]
         tree = _build_subtree(
             vg, depth,
@@ -170,11 +172,11 @@ def _transition(vg, theta, logp, grad, eps, inv_mass, max_tree_depth, g):
             torch.where(right, s["r_plus"], s["r_minus"]),
             torch.where(right, s["grad_plus"], s["grad_minus"]),
             torch.where(go_right, eps, -eps), inv_mass, energy0, int(max_tree_depth),
-            active, g,
+            active, g, sh,
         )
         ok = ~(tree.turning | tree.diverging)
         # biased progressive sampling across the doubling
-        u = torch.rand((C,), generator=g, dtype=dt, device=dev)
+        u = sh.local(torch.rand((sh.n,), generator=g, dtype=dt, device=dev))
         take = ok & (torch.log(u) < tree.log_sum_weight - s["log_sum_weight"])
         new = dict(
             theta_prop=torch.where(take[:, None], tree.theta_prop, s["theta_prop"]),
@@ -210,8 +212,11 @@ def sample(log_prob, init, generator=None, num_samples=1000, num_warmup=500,
     """Run NUTS on `log_prob` (theta [dim] -> scalar).
 
     init: [num_chains, dim]; generator: a torch.Generator on init's device
-    or an int seed; mesh: only None. Returns NUTSResult with samples
-    [num_samples, num_chains, dim].
+    or an int seed; mesh: a DeviceMesh whose ``chain`` dimension splits
+    the chains (``parallel/chains.py``): the "is any chain still
+    building" flag of a doubling becomes an all-reduce, and the depth
+    cap's warmup tree sizes an all-gather. Returns NUTSResult with samples
+    [num_samples, num_chains, dim], every chain on every rank.
 
     adapt_max_depth: in lockstep every chain waits for the deepest tree.
     When True, the second half of warmup records the leapfrog counts the
@@ -220,18 +225,20 @@ def sample(log_prob, init, generator=None, num_samples=1000, num_warmup=500,
     depth cap never biases NUTS: the budgeted kernel is a valid (truncated)
     trajectory sampler either way.
     """
-    check_mesh(mesh)
     init = torch.atleast_2d(torch.as_tensor(init))
     num_chains, dim = init.shape
+    sh = ChainShard(mesh, num_chains)
+    init = sh.local(init)
+    nc = sh.local_n
     dev, dt = init.device, init.dtype
     g = make_generator(generator, dev)
     vg = batched_value_and_grad(log_prob)
 
     theta = init
     logp, grad = vg(theta)
-    da = _da_init(torch.full((num_chains,), initial_step_size, dtype=dt, device=dev))
-    w_mean = torch.zeros((num_chains, dim), dtype=dt, device=dev)
-    w_m2 = torch.zeros((num_chains, dim), dtype=dt, device=dev)
+    da = _da_init(torch.full((nc,), initial_step_size, dtype=dt, device=dev))
+    w_mean = torch.zeros((nc, dim), dtype=dt, device=dev)
+    w_m2 = torch.zeros((nc, dim), dtype=dt, device=dev)
     ones = torch.ones_like(w_m2)
     warm_nsteps = []
     for it in range(int(num_warmup)):
@@ -239,7 +246,7 @@ def sample(log_prob, init, generator=None, num_samples=1000, num_warmup=500,
         inv_mass_now = (w_m2 / max(count - 1.0, 1.0)
                         if adapt_mass and count > 10.0 else ones)
         theta, logp, grad, accept, nsteps = _transition(
-            vg, theta, logp, grad, torch.exp(da.log_eps), inv_mass_now, max_tree_depth, g
+            vg, theta, logp, grad, torch.exp(da.log_eps), inv_mass_now, max_tree_depth, g, sh
         )
         da = _da_update(da, accept, target=target_accept)
         count = count + 1.0
@@ -258,19 +265,21 @@ def sample(log_prob, init, generator=None, num_samples=1000, num_warmup=500,
     if adapt_max_depth and num_warmup >= 20:
         # second-half warmup tree sizes -> the depth the chains actually
         # use; nsteps ~ 2^d - 1 at a depth-d U-turn
-        tail = torch.stack(warm_nsteps[num_warmup // 2:]).cpu().numpy()
+        tail = sh.gather(torch.stack(warm_nsteps[num_warmup // 2:]), 1).cpu().numpy()
         q90 = float(np.quantile(tail, 0.9))
         depth = int(np.clip(int(np.ceil(np.log2(q90 + 1.0))) + 1, 2, max_tree_depth))
 
     samples, accepts, steps = [], [], []
     for _ in range(int(num_samples)):
         theta, logp, grad, accept, nsteps = _transition(
-            vg, theta, logp, grad, eps, inv_mass, depth, g
+            vg, theta, logp, grad, eps, inv_mass, depth, g, sh
         )
         samples.append(theta)
         accepts.append(accept)
         steps.append(nsteps)
     return NUTSResult(
-        _stack(samples, (0, num_chains, dim), theta), _stack(accepts, (0, num_chains), logp),
-        _stack(steps, (0, num_chains), logp).to(torch.int32), eps, inv_mass, logp,
+        sh.gather(_stack(samples, (0, nc, dim), theta), 1),
+        sh.gather(_stack(accepts, (0, nc), logp), 1),
+        sh.gather(_stack(steps, (0, nc), logp).to(torch.int32), 1), sh.gather(eps),
+        sh.gather(inv_mass), sh.gather(logp),
     )

@@ -19,7 +19,8 @@ from typing import NamedTuple
 
 import torch
 
-from .logprob import batched_value_and_grad, check_mesh, make_generator
+from ..parallel.chains import ChainShard
+from .logprob import batched_value_and_grad, make_generator
 
 
 class SMCResult(NamedTuple):
@@ -96,12 +97,18 @@ def sample(log_prior, log_likelihood, init_particles, generator=None, num_move_s
     - init_particles: [P, dim] draws from the prior; the particles live on
       its device.
     - generator: a torch.Generator on that device, or an int seed.
-    - mesh: only None.
-    Returns SMCResult (particles are equal-weight after the final stage).
+    - mesh: a DeviceMesh whose ``chain`` dimension splits the particles
+      (``parallel/chains.py``): each rank moves its block; a stage
+      all-gathers the log-likelihoods (the ESS bisection, the evidence and
+      the resampling draw then run on all P on every rank), the particle
+      state the resampled block is taken from, and the move accepts.
+    Returns SMCResult (particles are equal-weight after the final stage),
+    every particle on every rank.
     """
-    check_mesh(mesh)
     particles = torch.as_tensor(init_particles)
     P_, dim = particles.shape
+    sh = ChainShard(mesh, P_)
+    particles = sh.local(particles)
     dt, dev = particles.dtype, particles.device
     g = make_generator(generator, dev)
     vg_prior = batched_value_and_grad(log_prior)
@@ -110,7 +117,7 @@ def sample(log_prior, log_likelihood, init_particles, generator=None, num_move_s
     def move(theta, lp_pr, g_pr, lp_lik, g_lik, beta, eps):
         """One HMC transition of every particle targeting the tempered
         density (unit mass); returns the new state and the accept flags."""
-        r0 = torch.randn((P_, dim), generator=g, dtype=dt, device=dev)
+        r0 = sh.local(torch.randn((P_, dim), generator=g, dtype=dt, device=dev))
         logp0 = lp_pr + beta * lp_lik
         th, r = theta, r0
         gp, gl, pp, pl = g_pr, g_lik, lp_pr, lp_lik
@@ -123,7 +130,7 @@ def sample(log_prior, log_likelihood, init_particles, generator=None, num_move_s
         logp1 = pp + beta * pl
         log_acc = (logp1 - 0.5 * torch.sum(r**2, -1)) - (logp0 - 0.5 * torch.sum(r0**2, -1))
         log_acc = torch.where(torch.isnan(log_acc), -torch.inf, log_acc)
-        u = torch.rand((P_,), generator=g, dtype=dt, device=dev)
+        u = sh.local(torch.rand((P_,), generator=g, dtype=dt, device=dev))
         acc = torch.log(u) < log_acc
         a1 = acc[:, None]
         return (torch.where(a1, th, theta), torch.where(acc, pp, lp_pr),
@@ -140,23 +147,25 @@ def sample(log_prior, log_likelihood, init_particles, generator=None, num_move_s
     # the densities only inside its leapfrogs
     state = (particles,) + vg_prior(particles) + vg_lik(particles)
     while n_stages < max_stages and float(beta) < 1.0 - 1e-6:  # one host read a stage
-        lp_lik = state[3]
+        (lp_lik,) = sh.gather_rows(state[3])
         delta = _find_next_beta(beta, lp_lik, target_ess)
         log_w = delta * lp_lik
         # evidence increment: log mean of the incremental weights
         log_Z = log_Z + torch.logsumexp(log_w, dim=0) - log_P
         beta = beta + delta
-        idx = _systematic_index(g, log_w)
-        state = tuple(x[idx] for x in state)
-        acc_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        idx = sh.local(_systematic_index(g, log_w))
+        state = tuple(x[idx] for x in sh.gather_rows(*state))
+        accepts = []
         for _ in range(int(num_move_steps)):
             state, accepted = move(*state, beta, eps)
-            acc_sum = acc_sum + torch.mean(accepted.to(torch.float32))
+            accepts.append(accepted.to(torch.float32))
+        acc_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        for accepted in sh.gather_rows(*accepts):
+            acc_sum = acc_sum + torch.mean(accepted)
         # per-stage step-size adaptation: the tempered target sharpens as
         # beta grows; nudge eps toward ~0.65 accept (Robbins-Monro style)
         acc_rate = acc_sum / num_move_steps
         eps = torch.clamp(eps * torch.exp(0.5 * (acc_rate - 0.65)), step_size * 1e-3,
                           step_size * 1e3)
         n_stages += 1
-    particles = state[0]
-    return SMCResult(particles, log_Z, n_stages, beta)
+    return SMCResult(sh.gather(state[0]), log_Z, n_stages, beta)

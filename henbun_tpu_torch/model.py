@@ -244,7 +244,11 @@ class Optimizer:
 
     ``noise_source``: None, or a callable ``step -> {path: u}`` whose
     result is injected as the noise of the step with that global index (a
-    test hands in the noise the JAX package drew)."""
+    test hands in the noise the JAX package drew). ``row_source``: None,
+    or a callable ``step -> rows`` giving that step's minibatch rows, as
+    indices into the arrays the step draws from (the model's data; the
+    pre-gathered train split in block mode; a ShardedOptimizer rank's
+    shard) in place of the drawn ones."""
 
     def __init__(self, model_instance, likelihood_method):
         self.model = model_instance
@@ -255,6 +259,7 @@ class Optimizer:
         self.global_step = 0
         self.history = []             # per-chunk objective traces (host arrays)
         self.noise_source = None
+        self.row_source = None
         from .utils.profiling import StepMetrics
 
         self.metrics = StepMetrics()
@@ -447,6 +452,13 @@ class Optimizer:
         """The axis of a MinibatchData array that indexes rows."""
         return 0
 
+    def _fleet_rows(self):
+        """(the number of models a fleet draws its rows for, the slice of
+        them this process trains): all of its models here; a rank of a
+        sharded fleet draws the whole fleet's rows and keeps its block."""
+        n = len(self._models())
+        return n, slice(0, n)
+
     def _take_rows(self, data, idx):
         """Data with the minibatch paths' rows `idx` taken (shared rows)."""
         ax = self._row_axis()
@@ -486,8 +498,12 @@ class Optimizer:
             raise ValueError("minibatch_mode must be 'random' or 'block'")
         mb = int(minibatch_size)
         mb_paths = self._mb_paths
-        # a fleet draws its rows per model: a leading [M] on the draws
-        lead = (len(self._models()),) if self._row_axis() else ()
+        # a fleet draws its rows per model: a leading [M] on the draws, of
+        # which it keeps `block`
+        lead, block = (), None
+        if self._row_axis():
+            n, block = self._fleet_rows()
+            lead = (n,)
 
         def select(data, train_idx, g):
             if mode == "block":
@@ -499,11 +515,13 @@ class Optimizer:
                                     device=g.device)
                 rows = train_idx[sel]
             out = {}
+            if lead:
+                rows = rows[block]
             for path, arr in data.items():
                 if path not in mb_paths:
                     out[path] = arr
                 elif lead:  # per-model rows of a stacked [M, N, ...] array
-                    out[path] = arr[torch.arange(lead[0], device=g.device)[:, None], rows]
+                    out[path] = arr[torch.arange(rows.shape[0], device=g.device)[:, None], rows]
                 else:
                     out[path] = arr.index_select(0, rows)
             return out
@@ -554,8 +572,14 @@ class Optimizer:
             self._trainable, self._frozen, d, self.model.generator, noise
         )
         (-val).backward()
+        val, diags = self._reduce_step(val.detach(), {k: v.detach() for k, v in diags.items()})
         opt.step()
-        return val.detach(), {k: v.detach() for k, v in diags.items()}
+        return val, diags
+
+    def _reduce_step(self, val, diags):
+        """After backward(), before the update: the identity here; the
+        sharded drivers all-reduce the gradients and the objective."""
+        return val, diags
 
     def _run_chunk(self, n, data, train_idx, select):
         """n steps; the objectives stay on the device until the caller
@@ -569,7 +593,13 @@ class Optimizer:
                 if self.noise_source is not None
                 else None
             )
-            val, diags = self._step(select(data, train_idx, g), noise)
+            if self.row_source is not None:
+                rows = torch.as_tensor(np.asarray(self.row_source(self.global_step + s)),
+                                       device=self.device)
+                d = self._take_rows(data, rows)
+            else:
+                d = select(data, train_idx, g)
+            val, diags = self._step(d, noise)
             objs[s] = val
             for k, v in diags.items():
                 diag_rows.setdefault(k, []).append(v)

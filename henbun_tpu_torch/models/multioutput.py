@@ -25,7 +25,7 @@ import torch
 from .. import densities, gp, transforms, variationals
 from ..core.param import Data, MinibatchData, ParamList, Variable
 from ..model import Model, AutoOptimize
-from ..ops.linalg import matmul_hp, tri_solve
+from ..ops.linalg import matmul_hp, safe_cholesky, tri_solve
 from .hetero import _q_factor
 from .svgp import _layered_whitened_marginals, _quantile_z
 
@@ -99,10 +99,14 @@ class MultiOutputGPR(Model):
         self.var = Variable(shape=[P], transform=transforms.positive)
 
     def _latent_chols(self):
-        """Cholesky factor(s) of the latent gram(s): [n, n] or [Q, n, n]."""
+        """Cholesky factor(s) of the latent gram(s): [n, n] or [Q, n, n].
+        The per-latent grams are factored as one [Q, n, n] batch (K1 on the
+        card for n <= 128), each with ``Kern.Cholesky``'s jitter and its
+        own escalation."""
         if self._shared:
             return self.kern.Cholesky(self.X)
-        return torch.stack([k.Cholesky(self.X) for k in self.kern])
+        return safe_cholesky(torch.stack([k.K(self.X) for k in self.kern]),
+                             gp.kernels.cholesky_jitter(self.X.shape[-2]))
 
     def _latent_K(self, x_new):
         """Cross-gram(s) K(X, x*): [n, n*] or [Q, n, n*]."""

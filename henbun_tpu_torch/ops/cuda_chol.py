@@ -22,8 +22,10 @@ trailing update, three block barriers a panel. What bounds it is that
 chain of pivots (a square root and a divide each) and the barriers, not
 FLOPs or bytes (see the source). ``safe_cholesky`` (``ops/linalg.py``)
 reaches K1 for every batched float32 factorization with n <= 128 on a CUDA
-tensor while ``[cuda] use_kernels`` is on; K4 and K5, like their TPU
-counterparts, are reached by direct import only.
+tensor while ``[cuda] use_kernels`` is on, through the custom op
+``henbun_tpu_torch::cholesky128`` (``ops/library.py``), which an exported
+program calls too; K4 and K5, like their TPU counterparts, are reached by
+direct import only.
 
 Each entry takes the kernel for a CUDA tensor and the plain version for a
 CPU tensor, and raises on anything else; nothing falls back. Its

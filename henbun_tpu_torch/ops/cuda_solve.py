@@ -14,9 +14,10 @@ the rows still open with a register-tiled product, so every thread works
 even at m = 1. Each column's chain of n divides and the barriers between
 blocks bound it, not FLOPs or bytes (see the source). ``ops/linalg.py``
 reaches it for batched float32 solves with
-n, m <= 128 on CUDA tensors while ``[cuda] use_kernels`` is on: the forward
-and gradient solves of ``tri_solve`` and both L^T solves of
-``safe_cholesky``'s backward.
+n, m <= 128 on CUDA tensors while ``[cuda] use_kernels`` is on, through the
+custom op ``henbun_tpu_torch::tri_solve128`` (``ops/library.py``, which
+decides m at run time): the forward and gradient solves of ``tri_solve``
+and both L^T solves of ``safe_cholesky``'s backward.
 
 :func:`tri_solve128_vbatched` takes the kernel for CUDA tensors and the
 plain version for CPU tensors, and raises on anything else; nothing falls

@@ -4,10 +4,14 @@ through: ``safe_cholesky`` and ``tri_solve``.
 Dispatch (decided on shape inside each Function's ``forward``, which always
 sees real tensors, also under ``torch.func.vmap``):
 
-* a 3-D float32 batch with n <= 128 (and m <= 128 for a solve) on a CUDA
-  tensor, with ``[cuda] use_kernels`` on: the hand-written kernel
-  (``ops/cuda_chol.py`` K1, ``ops/cuda_solve.py`` K2);
-* the same shapes on a CPU tensor: the kernel's plain PyTorch version;
+* a 3-D float32 batch with n <= 128 on a CUDA tensor, with ``[cuda]
+  use_kernels`` on: the custom ops of ``ops/library.py``, whose CUDA
+  implementations are the hand-written kernels (K1 ``ops/cuda_chol.py``,
+  K2 ``ops/cuda_solve.py``); a solve's width m is decided inside the op,
+  at run time (K2 where m <= 128, torch.linalg past it), so an exported
+  program with a symbolic request size carries no guard on it;
+* the same shapes on a CPU tensor: the same ops, whose CPU
+  implementations are the kernels' plain PyTorch versions;
 * anything else (a single 2-D matrix, n > 128, float64, CUDA with
   ``use_kernels`` off): ``torch.linalg``, as the JAX package sends such
   calls to XLA.
@@ -17,6 +21,10 @@ Under ``torch.func.vmap`` (a BatchedOptimizer fleet), each Function's
 unbatched operand, and calls the same Function on the 3-D tensors — the
 counterpart of the JAX package's ``custom_vmap`` rules. The backward then
 runs on those plain 3-D tensors, so its solves take the same dispatch.
+
+Under ``torch.export`` the Functions are bypassed (a served program takes
+no gradient): ``safe_cholesky`` runs its jitter escalation as a fixed
+masked ladder instead of reading a flag to the host.
 """
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ import numpy as np
 import torch
 
 from .._settings import settings
-from . import cuda_chol, cuda_solve
+from . import cuda_chol, library
 
 
 def eye(n, dtype=None, device=None):
@@ -148,7 +156,9 @@ def matmul_hp(a, b):
 
 # --------------------------------------------------------------- dispatch
 def _kernel_shape(A, R=None):
-    """Is this a call the batched kernels (or their plain versions) take?"""
+    """Is this a call the custom ops take? Only static facts are read (a
+    solve's width is the op's own decision), so an exported program adds
+    no guard on a symbolic request size."""
     if A.ndim != 3 or A.dtype != torch.float32:
         return False
     n = A.shape[-1]
@@ -161,13 +171,12 @@ def _kernel_shape(A, R=None):
         and R.dtype == torch.float32
         and R.shape[0] == A.shape[0]
         and R.shape[1] == n
-        and 0 < R.shape[2] <= cuda_solve.MAX_N
     )
 
 
 def _takes_kernel(A, R=None):
-    """Does this call go to the K1/K2 wrapper (the kernel on CUDA, its plain
-    version on the CPU)? If not, it goes to torch.linalg."""
+    """Does this call go to the K1/K2 custom op (the kernel on CUDA, its
+    plain version on the CPU)? If not, it goes to torch.linalg."""
     if not _kernel_shape(A, R):
         return False
     dev = A.device.type
@@ -178,7 +187,7 @@ def _cholesky_dispatch(A):
     """Lower Cholesky factor with an all-NaN factor for each matrix that is
     not positive definite (as ``jnp.linalg.cholesky``)."""
     if _takes_kernel(A):
-        return cuda_chol.cholesky128_vbatched(A.contiguous())
+        return library.cholesky128(A)
     # cholesky_ex leaves a partial factor where a pivot fails; write NaN
     # over each failed matrix, or the jitter escalation never triggers
     L, info = torch.linalg.cholesky_ex(A)
@@ -188,9 +197,7 @@ def _cholesky_dispatch(A):
 def _tri_solve_dispatch(L, R, transpose):
     """X with L X = R (or L^T X = R), reading only L's lower triangle."""
     if _takes_kernel(L, R):
-        return cuda_solve.tri_solve128_vbatched(
-            L.contiguous(), R.contiguous(), transpose=transpose
-        )
+        return library.tri_solve128(L, R, bool(transpose))
     if transpose:
         return torch.linalg.solve_triangular(L.mT, R, upper=True)
     return torch.linalg.solve_triangular(L, R, upper=False)
@@ -221,17 +228,7 @@ class SafeCholesky(torch.autograd.Function):
 
     @staticmethod
     def forward(A, jitter):
-        n = A.shape[-1]
-        eye_n = torch.eye(n, dtype=A.dtype, device=A.device)
-        L = _cholesky_dispatch(A + jitter * eye_n)
-        j = jitter
-        for _ in range(2):
-            bad = torch.isnan(L).flatten(-2).any(-1)
-            if not bool(bad.any()):
-                break
-            j = j * 100.0
-            L = torch.where(bad[..., None, None], _cholesky_dispatch(A + j * eye_n), L)
-        return L
+        return escalating_cholesky(A, jitter)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -289,12 +286,35 @@ class TriSolve(torch.autograd.Function):
         ), 0
 
 
+def escalating_cholesky(A, jitter, read_host=True):
+    """Lower Cholesky of A + jitter*I, each matrix whose factor has NaN
+    refactorized with its jitter x100, at most twice; a rung replaces only
+    the matrices still NaN, as the JAX package's masked ``while_loop``
+    does. ``read_host`` stops the ladder once no factor is NaN, one flag
+    read back a rung; without it (a traced, exported program) both rungs
+    always run: the same factor at three factorizations a call."""
+    n = A.shape[-1]
+    eye_n = torch.eye(n, dtype=A.dtype, device=A.device)
+    L = _cholesky_dispatch(A + jitter * eye_n)
+    j = jitter
+    for _ in range(2):
+        bad = torch.isnan(L).flatten(-2).any(-1)
+        if read_host and not bool(bad.any()):
+            break
+        j = j * 100.0
+        L = torch.where(bad[..., None, None], _cholesky_dispatch(A + j * eye_n), L)
+    return L
+
+
 def safe_cholesky(A, jitter=None):
     """Lower Cholesky of A + jitter*I (default ``[numerics] jitter_level``),
     escalating the jitter x100 (twice, per matrix) where the factor is NaN;
-    see :class:`SafeCholesky`."""
+    see :class:`SafeCholesky` (the ladder without its host read under
+    ``torch.export``)."""
     if jitter is None:
         jitter = settings.numerics.jitter_level
+    if torch.compiler.is_exporting():
+        return escalating_cholesky(A, float(jitter), read_host=False)
     return SafeCholesky.apply(A, float(jitter))
 
 
@@ -302,11 +322,15 @@ def tri_solve(L, R):
     """X = L^-1 R for lower-triangular L (a vector R is solved as one
     column); see :class:`TriSolve`."""
     if R.ndim == L.ndim - 1:
-        return TriSolve.apply(L, R[..., None], False)[..., 0]
+        return tri_solve(L, R[..., None])[..., 0]
+    if torch.compiler.is_exporting():
+        return _tri_solve_dispatch(L, R, False)
     return TriSolve.apply(L, R, False)
 
 
 def tri_solve_T(L, R):
     """X = L^-T R for lower-triangular L, reading only its lower triangle;
     see :class:`TriSolve`."""
+    if torch.compiler.is_exporting():
+        return _tri_solve_dispatch(L, R, True)
     return TriSolve.apply(L, R, True)

@@ -9,7 +9,9 @@ the SparseGPMulticlass evidence on the card against the CPU and its
 gradient against float64, the samplers' evaluation captured as a CUDA
 graph where the target never reads the host and eager where it does, the
 heteroscedastic fleet and the multi-output natural gradient on K1 and K2,
-streaming into a model on the card, and the JAX package's accuracy gates
+streaming into a model on the card, K1 and K2 through their custom ops,
+a served multi-output predictor, a sharded fleet over a one-rank NCCL
+mesh, and the JAX package's accuracy gates
 of the heteroscedastic, multi-output, deep GP, GP-LVM and Expert GPR
 families at its tests' step counts and limits.
 
@@ -764,6 +766,89 @@ def test_streaming_into_a_model_on_the_card(tmp_path):
 
 
 # The JAX package's accuracy gates, at its tests' step counts and limits
+def test_custom_ops_launch_the_kernels():
+    """K1 and K2 through their torch.library ops: the CUDA implementations
+    launch the kernels (counted once a call) and equal the wrappers; the
+    solve's width is decided inside the op, so m = 200 goes to
+    torch.linalg without a launch."""
+    from henbun_tpu_torch.ops import library
+
+    dev = _card()
+    A = torch.tensor(_spd(6, 80, 3), device=dev)
+    before = cuda_chol.cholesky128_vbatched.launches
+    L = library.cholesky128(A)
+    assert cuda_chol.cholesky128_vbatched.launches == before + 1
+    assert torch.equal(L, cuda_chol.cholesky128_vbatched(A))
+    R = torch.randn(6, 80, 100, device=dev)
+    before = cuda_solve.tri_solve128_vbatched.launches
+    X = library.tri_solve128(L, R, True)
+    assert cuda_solve.tri_solve128_vbatched.launches == before + 1
+    assert torch.equal(X, cuda_solve.tri_solve128_vbatched(L, R, transpose=True))
+    wide = torch.randn(6, 80, 200, device=dev)
+    before = cuda_solve.tri_solve128_vbatched.launches
+    Xw = library.tri_solve128(L, wide, False)
+    assert cuda_solve.tri_solve128_vbatched.launches == before
+    want = torch.linalg.solve_triangular(L, wide, upper=False)
+    assert torch.allclose(Xw, want, rtol=1e-5, atol=1e-5)
+
+
+def test_served_multioutput_predictor_on_the_card():
+    """MultiOutputGPR (per-latent kernels) exported for the card serves
+    any size: K1 and K2 launch from the program for n* <= 128, the
+    200-point solve goes to torch.linalg, and every answer equals the
+    eager predict_f (rtol 1e-5, atol 1e-6)."""
+    from henbun_tpu_torch import serving
+
+    dev = _card()
+    X, Y, _ = thb.models.make_multioutput_dataset(n=80, seed=0)
+    m = thb.models.MultiOutputGPR(seed=0, X=X, Y=Y, Q=2, shared_kernel=False, device=dev)
+    m.ELBO_analytic().compile(thb.adam(0.02)).optimize(maxiter=20)
+    art = serving.export_predictor(m, "predict_f", np.zeros((8, 1), np.float32),
+                                   platforms=("cuda",), batch_polymorphic=True)
+    for n in (5, 100, 200):
+        x = np.linspace(-0.5, 6.5, n, dtype=np.float32)[:, None]
+        k1, k2 = cuda_chol.cholesky128_vbatched.launches, cuda_solve.tri_solve128_vbatched.launches
+        got = art(torch.tensor(x, device=dev))
+        k1 = cuda_chol.cholesky128_vbatched.launches - k1
+        k2 = cuda_solve.tri_solve128_vbatched.launches - k2
+        assert k1 > 0 and (k2 > 0 if n <= 128 else k2 == 0), (n, k1, k2)
+        want = m.run(lambda mm: mm.predict_f(x))
+        for g, w in zip(got, want):
+            assert torch.allclose(g, w, rtol=1e-5, atol=1e-6)
+
+
+def test_sharded_fleet_over_nccl_matches_the_batched_optimizer():
+    """A one-rank NCCL mesh (make_mesh starts the group itself): the
+    sharded fleet equals BatchedOptimizer under the same injected noise."""
+    import torch.distributed as dist
+    from henbun_tpu_torch import parallel
+
+    dev = _card()
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    noise = [torch.randn(4, 20, generator=g, device=dev) for _ in range(5)]
+    try:
+        mesh = parallel.make_mesh()
+        assert dist.get_backend() == "nccl"
+        hists = []
+        for sharded in (False, True):
+            thb.set_seed(0)
+            ms = []
+            for i in range(4):
+                Xi, Yi = thb.models.make_sine_dataset(n=20, seed=i)
+                ms.append(thb.models.GPR(seed=i, X=Xi, Y=Yi, device=dev))
+            bo = (parallel.ShardedBatchedOptimizer(ms, "ELBO_gaussian", mesh=mesh) if sharded
+                  else thb.BatchedOptimizer(ms, "ELBO_gaussian"))
+            bo.compile(learning_rate=0.01)
+            bo.noise_source = lambda s: {"q": noise[s]}
+            bo.optimize(maxiter=5)
+            hists.append(bo.history[-1])
+        np.testing.assert_allclose(hists[1], hists[0], rtol=1e-6)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
 def test_hetero_accuracy_gate_on_the_card():
     """tests/test_hetero.py:46-63: n = 120, 3,000 Adam(0.02) steps of the
     analytic ELBO; the mean within RMSE 0.25 of sin(x), the learned noise

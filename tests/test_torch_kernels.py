@@ -15,6 +15,7 @@ so its lengthscale gradient is held to a float64 evaluation of the port
 -0.261 against -2.597 in float64 at n = 6). Its value and every other leaf
 are held to the JAX package.
 """
+import contextlib
 import zlib
 
 import numpy as np
@@ -254,7 +255,31 @@ def test_newton_near_tie_spread_is_the_pallas_kernels_too():
     not to 1e-4. Asserted: the plain float32 mode within 1e-4 of the
     Pallas kernel's on every model; every float32 mode's psi within the
     ladder's tie tolerance, 1e-5 (1 + |psi|), of the float64 mode's; the
-    generic loop within 1e-4 of float64."""
+    generic loop within 1e-4 of float64.
+
+    The two float32 paths sit at a near-tie of K3's step ladder, so a
+    change of summation order in either tips one of them across it, and a
+    tier-1 worker runs this after other modules in the same process. Two
+    process-wide states were measured to tip it: torch's float32 matmul
+    precision at "medium" and ``jax_enable_x64`` on (torch's thread count,
+    1 to 8, was measured not to). The test pins both to a fresh process's
+    values for its own duration (``_pinned_numerics``)."""
+    with _pinned_numerics():
+        _near_tie_check()
+
+
+@contextlib.contextmanager
+def _pinned_numerics():
+    prec = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        with jax.enable_x64(False):
+            yield
+    finally:
+        torch.set_float32_matmul_precision(prec)
+
+
+def _near_tie_check():
     import chip_smoke
     from henbun_tpu import densities as jdens
     from henbun_tpu.inference.laplace import _newton_iterations

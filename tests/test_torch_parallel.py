@@ -1,0 +1,320 @@
+"""henbun_tpu_torch.parallel on the CPU: mesh sizing, ShardedOptimizer,
+ShardedBatchedOptimizer, the chain-sharded samplers and sharded
+streaming, on two gloo ranks against the JAX package and against the
+one-process port.
+
+The two ranks are ``tests/test_torch_parallel_ranks.py`` processes that meet
+through a FileStore under tmp_path; they run every case once (a module
+fixture) and the tests read their results. Tolerances: the full-batch GPR
+objectives rtol 1e-5 against the JAX package's ShardedOptimizer on its
+8-device CPU mesh (the same weights and the same JAX draws, injected);
+the port's sharded runs against the one-process port at rtol 1e-5 (a
+mean of two ranks' float32 sums against one sum over the union), the
+chain-sharded samplers at rtol 1e-6 (the cross-chain quantities are
+computed from gathered per-chain values by the one-process arithmetic).
+"""
+import os
+import pathlib
+import subprocess
+import sys
+import zlib
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import optax
+import pytest
+import torch
+
+from henbun_tpu import models as jmodels
+from henbun_tpu.parallel import make_mesh as jax_mesh
+from henbun_tpu.parallel import ShardedOptimizer as JaxSharded
+import henbun_tpu_torch as thb
+from henbun_tpu_torch import parallel
+from henbun_tpu_torch.inference import chees, hmc, nuts, smc
+from henbun_tpu_torch.interop import params_from_jax
+
+import test_torch_parallel_ranks as ranks
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+WORLD = 2
+N = 6           # GPR points (test_torch_gpr.py's size)
+M = 4           # fleet models, two a rank
+K = 3           # minibatch rows a rank
+CHAINS = 8
+PARTICLES = 16
+
+
+def _u(key, path="q", n=N):
+    k = jax.random.fold_in(key, zlib.crc32(path.encode()) & 0x7FFFFFFF)
+    return np.asarray(jax.random.normal(k, (n,), dtype=jnp.float32))
+
+
+def _jax_gpr():
+    """JAX's ShardedOptimizer on its 8-device mesh: 5 Adam steps of the
+    full-batch GPR ELBO, with the draws its chunk takes."""
+    X, Y = jmodels.make_sine_dataset(n=N, seed=0)
+    jm = jmodels.GPR(seed=0, X=X, Y=Y)
+    jopt = JaxSharded(jm, jmodels.GPR.ELBO_gaussian.__wrapped__, mesh=jax_mesh())
+    jopt.compile(optax.adam(0.01))
+    params = {k: v.numpy() for k, v in params_from_jax(jm.param_dict()).items()}
+    # the chunk's step keys: split(fold_in(base, count + 1), steps)
+    keys = jax.random.split(jax.random.fold_in(jm._base_key, jm._key_count + 1), ranks.STEPS)
+    noise = np.stack([_u(k) for k in keys])
+    count = jm._key_count
+    jopt.optimize(maxiter=ranks.STEPS)
+    assert jm._key_count == count + 1 and len(jopt.history[-1]) == ranks.STEPS
+    return X, Y, params, noise, np.asarray(jopt.history[-1])
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    d = tmp_path_factory.mktemp("ranks")
+    rng = np.random.default_rng(0)
+    X, Y, params, noise, jax_hist = _jax_gpr()
+    inputs = {"gpr_X": X, "gpr_Y": Y, "gpr_noise": noise}
+    inputs.update({"gpr_p:" + k: v for k, v in params.items()})
+    am_X, am_Y = thb.models.make_synthetic_regression(n=64, d_x=4, seed=0)
+    local_n = (64 - 6) // WORLD  # the Indexer's 90% train split, per rank
+    inputs.update(am_X=am_X, am_Y=am_Y,
+                  am_pos=rng.integers(0, local_n, (WORLD, ranks.STEPS, K)),
+                  am_noise=rng.standard_normal((ranks.STEPS, WORLD * K, 2)).astype(np.float32))
+    am_fleet = [thb.models.make_synthetic_regression(n=16, d_x=4, seed=i) for i in range(M)]
+    inputs.update(am_fleet_X=np.stack([f[0] for f in am_fleet]),
+                  am_fleet_Y=np.stack([f[1] for f in am_fleet]))
+    fleet = [thb.models.make_sine_dataset(n=N, seed=i) for i in range(M)]
+    inputs.update(fleet_X=np.stack([f[0] for f in fleet]), fleet_Y=np.stack([f[1] for f in fleet]),
+                  fleet_noise=rng.standard_normal((ranks.STEPS, M, N)).astype(np.float32))
+    inputs.update(chains_init=rng.standard_normal((CHAINS, 3)).astype(np.float32),
+                  particles=rng.standard_normal((PARTICLES, 3)).astype(np.float32))
+    sx = rng.normal(size=(1000, 3)).astype(np.float32)
+    sy = (sx @ np.array([1.0, -2.0, 0.5], np.float32))[:, None] + 0.05 * rng.normal(
+        size=(1000, 1)).astype(np.float32)
+    path = str(d / "rows.f32")
+    n, row_floats, slices, _ = thb.io.write_dataset(path, sx, sy)
+    inputs.update(stream_path=np.array(path), stream_n=n, stream_row_floats=row_floats,
+                  stream_slices=np.asarray(slices))
+    np.savez(d / "inputs.npz", **inputs)
+    thb.io.loader._lib()  # build the loader once, before the ranks load it
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    script = str(ROOT / "tests" / "test_torch_parallel_ranks.py")
+    procs = [subprocess.Popen([sys.executable, script, str(r), str(WORLD), str(d)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(WORLD)]
+    try:
+        logs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-4000:]
+    out = [torch.load(d / ("rank%d.pt" % r), weights_only=False) for r in range(WORLD)]
+    return inputs, jax_hist, out
+
+
+def _same_on_ranks(out, case, key):
+    a, b = (o[case][key] for o in out)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_mesh_sizing_and_the_single_process_group():
+    """Without a group, make_mesh starts a one-rank one (gloo here); a
+    ShardedOptimizer on it is the single-device driver, bit for bit."""
+    assert not torch.distributed.is_initialized()
+    try:
+        mesh = parallel.make_mesh()
+        assert tuple(mesh.shape) == (1, 1)
+        assert mesh.mesh_dim_names == (parallel.DATA_AXIS, parallel.CHAIN_AXIS)
+        with pytest.raises(ValueError, match="does not cover"):
+            parallel.make_mesh(n_data=2, n_chain=1)
+        runs = []
+        for sharded in (False, True):
+            thb.set_seed(0)
+            X, Y = thb.models.make_sine_dataset(n=N, seed=0)
+            m = thb.models.GPR(seed=0, X=X, Y=Y, device="cpu")
+            opt = (parallel.ShardedOptimizer(m, "ELBO_gaussian") if sharded
+                   else thb.Optimizer(m, thb.models.GPR.ELBO_gaussian.__wrapped__))
+            opt.compile(learning_rate=0.01).optimize(maxiter=3)
+            runs.append(opt.history[-1])
+        np.testing.assert_array_equal(runs[0], runs[1])
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def test_mesh_sizing_two_ranks(run):
+    _, _, out = run
+    for o in out:
+        m = o["mesh_sizes"]
+        assert m["default"] == (WORLD, 1) and m["chain"] == (1, WORLD)
+        assert "does not cover" in m["uncovered"]
+
+
+def test_fullbatch_gpr_matches_the_jax_sharded_optimizer(run):
+    _, jax_hist, out = run
+    for o in out:
+        np.testing.assert_allclose(o["gpr_fullbatch"]["hist"], jax_hist, rtol=1e-5)
+    _same_on_ranks(out, "gpr_fullbatch", "params")
+
+
+def test_minibatch_rows_match_the_one_process_port(run):
+    """Each rank's injected rows and noise; the one-process port takes
+    their union (rank 0's rows, then rank 1's) and its noise."""
+    inputs, _, out = run
+    rows = np.concatenate([o["amortized"]["rows"] for o in out], axis=1)
+    thb.set_seed(0)
+    m = thb.models.AmortizedRegression(seed=0, X=inputs["am_X"], Y=inputs["am_Y"], d_z=2,
+                                       hidden=8, device="cpu")
+    opt = m.ELBO().compile(learning_rate=0.01)
+    opt.row_source = lambda s: rows[s]
+    opt.noise_source = lambda s: {"z": torch.tensor(inputs["am_noise"][s])}
+    opt.optimize(maxiter=ranks.STEPS, minibatch_size=WORLD * K)
+    for o in out:
+        np.testing.assert_allclose(o["amortized"]["hist"], opt.history[-1], rtol=1e-5)
+        for k, v in m.param_dict().items():
+            np.testing.assert_allclose(o["amortized"]["params"][k], v.detach().numpy(),
+                                       rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+def _amortized_one_process(inputs, rows, noise=None):
+    """The one-process port on injected rows (and noise, where given)."""
+    thb.set_seed(0)
+    m = thb.models.AmortizedRegression(seed=0, X=inputs["am_X"], Y=inputs["am_Y"], d_z=2,
+                                       hidden=8, device="cpu")
+    opt = m.ELBO().compile(learning_rate=0.01)
+    opt.row_source = lambda s: rows[s]
+    if noise is not None:
+        opt.noise_source = lambda s: {"z": noise[s]}
+    opt.optimize(maxiter=ranks.STEPS, minibatch_size=rows.shape[1])
+    return opt.history[-1], m
+
+
+def _assert_matches(got, hist, m):
+    np.testing.assert_allclose(got["hist"], hist, rtol=1e-5)
+    for k, v in m.param_dict().items():
+        np.testing.assert_allclose(got["params"][k], v.detach().numpy(), rtol=1e-5, atol=1e-6,
+                                   err_msg=k)
+
+
+def test_drawn_noise_matches_the_one_process_port(run):
+    """Each rank's rows injected, the noise drawn: every rank draws the
+    noise of all the rows from the shared generator and keeps its block,
+    which is the one-process run's draw on the union of the rows."""
+    inputs, _, out = run
+    rows = np.concatenate([o["amortized"]["rows"] for o in out], axis=1)
+    hist, m = _amortized_one_process(inputs, rows)
+    for o in out:
+        _assert_matches(o["amortized_noise_drawn"], hist, m)
+
+
+@pytest.mark.parametrize("mode", ["random", "block"])
+def test_drawn_rows_and_noise_replay_in_one_process(run, mode):
+    """Rows and noise drawn on the ranks. Replayed from the generator's
+    state: each step's table of the ranks' shard offsets (block starts in
+    block mode), each rank keeping its row, then the noise of all the rows;
+    the one-process port on the union of the rows with that noise."""
+    inputs, _, out = run
+    got = out[0]["amortized_drawn"][mode]
+    train, k = got["train_index"], 2
+    local_n = len(train) // WORLD
+    g = torch.Generator()
+    g.set_state(got["state"])
+    rows, noise = [], []
+    for _ in range(ranks.STEPS):
+        if mode == "block":
+            start = torch.randint(0, local_n - k + 1, (WORLD, 1), generator=g).numpy()
+            off = start + np.arange(k)
+        else:
+            off = torch.randint(0, local_n, (WORLD, k), generator=g).numpy()
+        rows.append(np.concatenate([train[r * local_n + off[r]] for r in range(WORLD)]))
+        noise.append(torch.randn((WORLD * k, 2), generator=g))
+    hist, m = _amortized_one_process(inputs, np.stack(rows), noise)
+    for o in out:
+        _assert_matches(o["amortized_drawn"][mode], hist, m)
+
+
+def test_drawn_rows_keep_the_parameters_replicated(run):
+    _, _, out = run
+    for mode in ("random", "block"):
+        for o in out:
+            assert np.isfinite(o["amortized_drawn"][mode]["hist"]).all()
+        a, b = (o["amortized_drawn"][mode]["params"] for o in out)
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert "divisible by the mesh data-axis" in out[0]["amortized_drawn"]["indivisible"]
+
+
+def test_sharded_fleet_matches_the_batched_optimizer(run):
+    inputs, _, out = run
+    thb.set_seed(0)
+    models = [thb.models.GPR(seed=i, X=inputs["fleet_X"][i], Y=inputs["fleet_Y"][i],
+                             device="cpu") for i in range(M)]
+    bo = thb.BatchedOptimizer(models, "ELBO_gaussian").compile(learning_rate=0.01)
+    bo.noise_source = lambda s: {"q": torch.tensor(inputs["fleet_noise"][s])}
+    bo.optimize(maxiter=ranks.STEPS)
+    for o in out:
+        assert o["fleet"]["local"] == M // WORLD
+        assert "divide evenly" in o["fleet"]["uneven"]
+        np.testing.assert_allclose(o["fleet"]["hist"], bo.history[-1], rtol=1e-6)
+        for got, m in zip(o["fleet"]["params"], models):
+            for k, v in m.param_dict().items():
+                np.testing.assert_allclose(got[k], v.detach().numpy(), rtol=1e-6, atol=1e-7,
+                                           err_msg=k)
+
+
+def test_sharded_fleet_draws_the_unsharded_fleets_noise(run):
+    """The noise drawn (and a minibatch fleet's rows): every rank draws the
+    whole fleet's and keeps its block, so the sharded fleet equals the
+    BatchedOptimizer drawing its own."""
+    inputs, _, out = run
+    thb.set_seed(0)
+    gprs = [thb.models.GPR(seed=i, X=inputs["fleet_X"][i], Y=inputs["fleet_Y"][i],
+                           device="cpu") for i in range(M)]
+    bo = thb.BatchedOptimizer(gprs, "ELBO_gaussian").compile(learning_rate=0.01)
+    bo.optimize(maxiter=ranks.STEPS)
+    thb.set_seed(0)
+    ams = [thb.models.AmortizedRegression(seed=i, X=inputs["am_fleet_X"][i],
+                                          Y=inputs["am_fleet_Y"][i], d_z=2, hidden=8,
+                                          device="cpu") for i in range(M)]
+    ba = thb.BatchedOptimizer(ams, "ELBO").compile(learning_rate=0.01)
+    ba.optimize(maxiter=ranks.STEPS, minibatch_size=4)
+    for o in out:
+        for name, opt, models in (("gpr", bo, gprs), ("amortized", ba, ams)):
+            np.testing.assert_allclose(o["fleet_drawn"][name], opt.history[-1], rtol=1e-6,
+                                       err_msg=name)
+            for got, m in zip(o["fleet_drawn"][name + "_params"], models):
+                for k, v in m.param_dict().items():
+                    np.testing.assert_allclose(got[k], v.detach().numpy(), rtol=1e-6,
+                                               atol=1e-7, err_msg=name + " " + k)
+
+
+@pytest.mark.parametrize("name", ["hmc", "chees", "nuts", "smc"])
+def test_chain_sharded_sampler_matches_one_process(run, name):
+    inputs, _, out = run
+    if name == "smc":
+        want = smc.sample(ranks.gauss_lp(), ranks.lik_lp(), torch.tensor(inputs["particles"]),
+                          0, num_move_steps=2, num_leapfrog=3)
+    else:
+        mod = {"hmc": hmc, "chees": chees, "nuts": nuts}[name]
+        kw = {"hmc": dict(num_leapfrog=4), "chees": {}, "nuts": dict(max_tree_depth=4)}[name]
+        want = mod.sample(ranks.gauss_lp(), torch.tensor(inputs["chains_init"]), 0,
+                          num_samples=10, num_warmup=25, **kw)
+    for o in out:
+        got = o["samplers"][name]
+        for k, v in want._asdict().items():
+            np.testing.assert_allclose(np.asarray(got[k], np.float64),
+                                       np.asarray(v, np.float64), rtol=1e-6, atol=1e-7,
+                                       err_msg=k)
+
+
+def test_streaming_into_a_sharded_optimizer(run):
+    """tests/test_io.py's sharded streaming case: C++-prefetched
+    megabatches swapped into a ShardedOptimizer recover the coefficients."""
+    _, _, out = run
+    for o in out:
+        assert o["streaming"]["train_size"] == 512
+        np.testing.assert_allclose(o["streaming"]["w"], [1.0, -2.0, 0.5], atol=0.1)
+    np.testing.assert_array_equal(out[0]["streaming"]["w"], out[1]["streaming"]["w"])

@@ -1,0 +1,213 @@
+"""One rank of the multi-process cases of ``tests/test_torch_parallel.py``.
+
+    python tests/test_torch_parallel_ranks.py <rank> <world_size> <directory>
+
+The ranks meet through a ``FileStore`` in <directory> (gloo, CPU tensors),
+read the shared inputs from <directory>/inputs.npz (written by the test),
+run every case below on a mesh of the world, and write their results to
+<directory>/rank<r>.pt. This file imports no JAX: the test compares the
+results with the JAX package and with the one-process port.
+"""
+import os
+import sys
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import henbun_tpu_torch as thb  # noqa: E402
+from henbun_tpu_torch.inference import chees, hmc, nuts, smc  # noqa: E402
+from henbun_tpu_torch.parallel import (  # noqa: E402
+    ShardedBatchedOptimizer, ShardedOptimizer, initialize_distributed, make_mesh)
+
+STEPS = 5
+PREC = np.array([[2.0, 0.3, 0.0], [0.3, 1.0, 0.2], [0.0, 0.2, 0.5]], np.float32)
+
+
+class LinReg(thb.Model):
+    def setUp(self):
+        self.x = thb.MinibatchData(np.zeros((8, 3), np.float32))
+        self.y = thb.MinibatchData(np.zeros((8, 1), np.float32))
+        self.w = thb.Variable([3, 1], stddev=0.1)
+
+    @thb.AutoOptimize()
+    def obj(self):
+        return -torch.sum(torch.square(self.y - torch.matmul(self.x, self.w)))
+
+
+def gauss_lp():
+    prec = torch.tensor(PREC)
+    return lambda t: -0.5 * t @ prec @ t
+
+
+def lik_lp():
+    return lambda t: -0.5 * torch.sum((t - 1.0) ** 2) / 0.3
+
+
+def params_of(model):
+    return {k: v.detach().numpy().copy() for k, v in model.param_dict().items()}
+
+
+def mesh_sizes(inp, rank, world):
+    out = {"default": tuple(make_mesh().shape),
+           "chain": tuple(make_mesh(n_data=1, n_chain=world).shape)}
+    try:
+        make_mesh(n_data=world + 1, n_chain=1)
+        out["uncovered"] = "no error"
+    except ValueError as err:
+        out["uncovered"] = str(err)
+    return out
+
+
+def gpr_fullbatch(inp, rank, world):
+    """Full-batch GPR.ELBO_gaussian, the JAX package's draws injected."""
+    thb.set_seed(0)
+    tm = thb.models.GPR(seed=0, X=inp["gpr_X"], Y=inp["gpr_Y"], device="cpu")
+    tm.set_param_dict({k[6:]: torch.tensor(inp[k]) for k in inp if k.startswith("gpr_p:")})
+    opt = ShardedOptimizer(tm, "ELBO_gaussian", mesh=make_mesh()).compile(learning_rate=0.01)
+    noise = inp["gpr_noise"]
+    opt.noise_source = lambda s: {"q": torch.tensor(noise[s])}
+    opt.optimize(maxiter=STEPS)
+    return {"hist": opt.history[-1], "params": params_of(tm)}
+
+
+def amortized(inp, rank, world):
+    """Minibatch amortized SVI, this rank's rows and noise injected."""
+    thb.set_seed(0)
+    m = thb.models.AmortizedRegression(seed=0, X=inp["am_X"], Y=inp["am_Y"], d_z=2,
+                                       hidden=8, device="cpu")
+    opt = ShardedOptimizer(m, "ELBO", mesh=make_mesh()).compile(learning_rate=0.01)
+    pos, noise = inp["am_pos"][rank], inp["am_noise"]
+    k = pos.shape[1]
+    opt.row_source = lambda s: pos[s]
+    opt.noise_source = lambda s: {"z": torch.tensor(noise[s, rank * k:(rank + 1) * k])}
+    opt.optimize(maxiter=STEPS, minibatch_size=world * k)
+    local_n = len(m._index._train_index) // world
+    rows = m._index._train_index[rank * local_n + pos[:STEPS]]
+    return {"hist": opt.history[-1], "params": params_of(m), "rows": rows}
+
+
+def amortized_noise_drawn(inp, rank, world):
+    """Minibatch amortized SVI, this rank's rows injected and the noise
+    drawn from the model's generator."""
+    thb.set_seed(0)
+    m = thb.models.AmortizedRegression(seed=0, X=inp["am_X"], Y=inp["am_Y"], d_z=2,
+                                       hidden=8, device="cpu")
+    opt = ShardedOptimizer(m, "ELBO", mesh=make_mesh()).compile(learning_rate=0.01)
+    pos = inp["am_pos"][rank]
+    opt.row_source = lambda s: pos[s]
+    opt.optimize(maxiter=STEPS, minibatch_size=world * pos.shape[1])
+    return {"hist": opt.history[-1], "params": params_of(m)}
+
+
+def amortized_drawn(inp, rank, world):
+    """Rows drawn by each rank from its own shard, both modes, and the
+    noise drawn: the generator's state before the steps, to replay them."""
+    out = {}
+    for mode in ("random", "block"):
+        thb.set_seed(0)
+        m = thb.models.AmortizedRegression(seed=0, X=inp["am_X"], Y=inp["am_Y"], d_z=2,
+                                           hidden=8, device="cpu")
+        opt = ShardedOptimizer(m, "ELBO", mesh=make_mesh()).compile(learning_rate=0.01)
+        state = m.generator.get_state()
+        opt.optimize(maxiter=STEPS, minibatch_size=2 * world, minibatch_mode=mode)
+        out[mode] = {"hist": opt.history[-1], "params": params_of(m), "state": state,
+                     "train_index": np.asarray(m._index._train_index)}
+    try:
+        opt.optimize(maxiter=1, minibatch_size=2 * world + 1)
+        out["indivisible"] = "no error"
+    except ValueError as err:
+        out["indivisible"] = str(err)
+    return out
+
+
+def fleet(inp, rank, world):
+    """ShardedBatchedOptimizer over the chain dimension, noise injected."""
+    thb.set_seed(0)
+    models = [thb.models.GPR(seed=i, X=inp["fleet_X"][i], Y=inp["fleet_Y"][i], device="cpu")
+              for i in range(len(inp["fleet_X"]))]
+    bo = ShardedBatchedOptimizer(models, "ELBO_gaussian",
+                                 mesh=make_mesh(n_data=1, n_chain=world))
+    bo.compile(learning_rate=0.01)
+    k = len(bo.models)
+    noise = inp["fleet_noise"]
+    bo.noise_source = lambda s: {"q": torch.tensor(noise[s, rank * k:(rank + 1) * k])}
+    bo.optimize(maxiter=STEPS)
+    try:
+        ShardedBatchedOptimizer(models[:world + 1], "ELBO_gaussian",
+                                mesh=make_mesh(n_data=1, n_chain=world))
+        uneven = "no error"
+    except ValueError as err:
+        uneven = str(err)
+    return {"hist": bo.history[-1], "params": [params_of(m) for m in bo.all_models],
+            "local": k, "uneven": uneven}
+
+
+def fleet_drawn(inp, rank, world):
+    """ShardedBatchedOptimizer with the noise drawn: a full-batch GPR fleet
+    and a minibatch amortized fleet with the rows drawn too."""
+    thb.set_seed(0)
+    gprs = [thb.models.GPR(seed=i, X=inp["fleet_X"][i], Y=inp["fleet_Y"][i], device="cpu")
+            for i in range(len(inp["fleet_X"]))]
+    mesh = make_mesh(n_data=1, n_chain=world)
+    bo = ShardedBatchedOptimizer(gprs, "ELBO_gaussian", mesh=mesh).compile(learning_rate=0.01)
+    bo.optimize(maxiter=STEPS)
+    thb.set_seed(0)
+    ams = [thb.models.AmortizedRegression(seed=i, X=inp["am_fleet_X"][i],
+                                          Y=inp["am_fleet_Y"][i], d_z=2, hidden=8, device="cpu")
+           for i in range(len(inp["am_fleet_X"]))]
+    ba = ShardedBatchedOptimizer(ams, "ELBO", mesh=mesh).compile(learning_rate=0.01)
+    ba.optimize(maxiter=STEPS, minibatch_size=4)
+    return {"gpr": bo.history[-1], "gpr_params": [params_of(m) for m in bo.all_models],
+            "amortized": ba.history[-1], "amortized_params": [params_of(m) for m in ba.all_models]}
+
+
+def samplers(inp, rank, world):
+    """Each sampler with the chains (particles) split over chain."""
+    mesh = make_mesh(n_data=1, n_chain=world)
+    init = torch.tensor(inp["chains_init"])
+    out = {}
+    for name, mod, kw in (("hmc", hmc, dict(num_leapfrog=4)), ("chees", chees, {}),
+                          ("nuts", nuts, dict(max_tree_depth=4))):
+        res = mod.sample(gauss_lp(), init, 0, num_samples=10, num_warmup=25, mesh=mesh, **kw)
+        out[name] = {k: np.asarray(v) for k, v in res._asdict().items()}
+    res = smc.sample(gauss_lp(), lik_lp(), torch.tensor(inp["particles"]), 0,
+                     num_move_steps=2, num_leapfrog=3, mesh=mesh)
+    out["smc"] = {k: np.asarray(v) for k, v in res._asdict().items()}
+    return out
+
+
+def streaming(inp, rank, world):
+    """Out-of-core megabatches into a ShardedOptimizer: every rank reads
+    the same megabatches (one loader seed) and trains on its shard."""
+    from henbun_tpu_torch.io import OutOfCoreLoader, optimize_streaming
+
+    thb.set_seed(0)
+    m = LinReg(seed=0, device="cpu")
+    opt = ShardedOptimizer(m, "obj", mesh=make_mesh()).compile(learning_rate=0.05)
+    path = str(inp["stream_path"])
+    n, row_floats = int(inp["stream_n"]), int(inp["stream_row_floats"])
+    slices = [tuple(s) for s in inp["stream_slices"]]
+    with OutOfCoreLoader(path, n, row_floats, batch_rows=512, seed=5) as dl:
+        optimize_streaming(opt, dl, slices, maxiter=1500, minibatch_size=64)
+    return {"w": m.w.value[:, 0].copy(), "train_size": m._index.train_size}
+
+
+CASES = (mesh_sizes, gpr_fullbatch, amortized, amortized_noise_drawn, amortized_drawn, fleet,
+         fleet_drawn, samplers, streaming)
+
+
+def main(rank, world, directory):
+    torch.set_num_threads(1)
+    initialize_distributed("file://" + os.path.join(directory, "store"), world, rank,
+                           backend="gloo")
+    inp = dict(np.load(os.path.join(directory, "inputs.npz"), allow_pickle=False))
+    out = {case.__name__: case(inp, rank, world) for case in CASES}
+    torch.save(out, os.path.join(directory, "rank%d.pt" % rank))
+    torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])

@@ -386,11 +386,12 @@ def test_bad_sampler_and_a_mesh_raise():
     _, tm = _bnn_pair()
     with pytest.raises(ValueError, match="sampler must be one of"):
         sample_posterior(tm, "log_posterior", sampler="mala")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # a mesh is a DeviceMesh (parallel.make_mesh); anything else raises
+    with pytest.raises(TypeError, match="DeviceMesh"):
         sample_posterior(tm, "log_posterior", mesh=object())
     init = torch.zeros((2, 2))
     for mod in (hmc, chees, nuts):
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             mod.sample(_gauss_lp(), init, 0, num_samples=1, num_warmup=1, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         smc.sample(_gauss_lp(), _gauss_lp(), init, 0, mesh=object())
