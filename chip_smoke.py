@@ -136,7 +136,17 @@ Run from the root of a checkout. Phases, each of which fails the run:
    unsharded drivers; then two gloo ranks on the one card (spawned as
    `chip_smoke.py --rank r 2 <dir>`), the minibatch amortized fit with
    each rank's rows and noise injected, 10 steps, against the one-process
-   run on the union of the rows (1e-5 relative).
+   run on the union of the rows (1e-5 relative). The row-sharded
+   full-batch evidence at phase 14's width (SparseGPC at n = 1e5,
+   m = 128, log_marginal_laplace and log_marginal_ep): one process, one
+   NCCL rank and the two gloo ranks (50,000 rows each), the objective at
+   the initial weights within 1e-5 relative of the one-process card
+   run's, each gradient leaf within 1e-4 of its largest entry or held to
+   the card's float64 as in phase 14, 10 Adam steps finite and rising
+   (EP's ep_delta under 1e-2), the row sums' all-reduces and bytes a step
+   and steps/s against one process; henbun_tpu_torch.entry's
+   dryrun_multichip(1) over NCCL and dryrun_multichip(2) over gloo on the
+   card. No step count was cut for these (about 60 s more).
 Each of phases 21-24 is finite and rising and reports steps/s, host
 reads a step and a traced window's busy share; phase 21's main phase
 runs 1,000 steps where the example runs 10 x 1,000 (cut for time).
@@ -3122,6 +3132,8 @@ SHARD_MB = 512
 RANKS = 2
 RANKS_STEPS = 10
 RANKS_ROWS = 256                 # each rank's rows a step: 512 over the two
+SHARD_EVIDENCE = ("log_marginal_laplace", "log_marginal_ep")
+SHARD_EVIDENCE_STEPS = 10
 
 # the phase-26 child: a fresh process that imports torch and the serving
 # module only, loads the saved artifact and serves each size on both
@@ -3262,6 +3274,86 @@ def serving_phase(torch, hb):
             "eager_ms": eager_ms}
 
 
+def evidence_step(torch, opt):
+    """One zero-learning-rate step of an evidence Optimizer (a
+    ShardedOptimizer reduces the gradient over its ranks in it): the
+    objective, its gradient ({leaf: numpy}), the row sums' all-reduces
+    (calls, bytes) of the step and the rows this rank held."""
+    from henbun_tpu_torch.parallel import rows
+
+    opt.compile(optimizer=lambda params: torch.optim.SGD(params, lr=0.0))
+    rows.reset_stats()
+    opt.optimize(maxiter=1)
+    grads = {k: -t.grad.detach().cpu().numpy() for k, t in opt._trainable.items()}
+    return {"value": float(opt.history[-1][0]), "grads": grads, "stats": dict(rows.stats),
+            "block": getattr(opt, "_row_block", None)}
+
+
+def sharded_evidence_runs(torch, hb, make_opt):
+    """Phase 27's full-width evidence (phase 14's SparseGPC at n = 1e5,
+    m = 128) with make_opt(model, method) as the optimizer, for each of
+    SHARD_EVIDENCE: the zero step at the initial weights, then
+    SHARD_EVIDENCE_STEPS Adam(0.05) steps from them (history, seconds,
+    the last ep_delta)."""
+    data = sparse_data(SPARSE_N)
+    out = {}
+    for method in SHARD_EVIDENCE:
+        got = evidence_step(torch, make_opt(sparse_model(hb, data, "gpc"), method))
+        opt = make_opt(sparse_model(hb, data, "gpc"), method).compile(hb.adam(0.05))
+        got["hist"], got["seconds"], _ = run_path(torch, hb, opt, SHARD_EVIDENCE_STEPS)
+        got["ep_delta"] = opt.metrics.rows[-1].get("ep_delta")
+        out[method] = got
+    return out
+
+
+def evidence_float64(torch, hb, method):
+    """The one-process gradient of `method` on the card in float64 at the
+    initial weights (held()'s arbiter)."""
+    data = sparse_data(SPARSE_N)
+    m = sparse_model(hb, data, "gpc")
+    m.initialize()  # the staged initial values
+    params = {k: v.detach().cpu() for k, v in m.param_dict().items()}
+    cfg = hb.settings.get_settings()
+    cfg.dtypes.float_type = torch.float64
+    with hb.settings.temp_settings(cfg):
+        m = sparse_model(hb, data, "gpc")
+        m.set_param_dict({k: v.double() for k, v in params.items()})
+        return value_and_grad(getattr(m, method)().compile(learning_rate=0.05))[1]
+
+
+def sharded_evidence_checks(torch, hb, label, runs, one):
+    """Each run of `runs` (sharded_evidence_runs' results on an optimizer)
+    against the one-process card run `one`: the objective at rtol 1e-5,
+    each gradient leaf within 1e-4 of its largest entry or arbitrated by
+    the card's float64 (held(), phase 14's float32 tolerances), the
+    Adam steps finite and rising, the EP's ep_delta under its guard.
+    Returns the text to print."""
+    texts = []
+    for method, got in runs.items():
+        want = one[method]
+        rel = abs(got["value"] - want["value"]) / abs(want["value"])
+        check(rel <= 1e-5, "%s %s: objective %r against one process %r (rel %g)"
+              % (label, method, got["value"], want["value"], rel))
+        tol = SPARSE_EP_F32_TOL if method == "log_marginal_ep" else SPARSE_LAPLACE_F32_TOL
+        text = held(torch, "%s %s" % (label, method), (got["value"], got["grads"]),
+                    (want["value"], want["grads"]), lambda: evidence_float64(torch, hb, method),
+                    tol)
+        first, last = check_rises(got["hist"] / SPARSE_N, "%s %s" % (label, method), 5)
+        if method == "log_marginal_ep":
+            check(got["ep_delta"] < 1e-2, "%s %s: ep_delta %g" % (label, method, got["ep_delta"]))
+        hist_rel = float(np.max(np.abs(got["hist"] - want["hist"]) / np.abs(want["hist"])))
+        texts.append("%s; rows %s; %d Adam steps per point %.5f -> %.5f, max rel vs one process "
+                     "%.3g%s; row all-reduces a step %d (%d bytes); steps_per_s %.2f "
+                     "(one process %.2f)"
+                     % (text, got["block"], SHARD_EVIDENCE_STEPS, first, last, hist_rel,
+                        "" if got["ep_delta"] is None else ", ep_delta %.3g (one process %.3g)"
+                        % (got["ep_delta"], want["ep_delta"]),
+                        got["stats"]["calls"], got["stats"]["bytes"],
+                        SHARD_EVIDENCE_STEPS / got["seconds"],
+                        SHARD_EVIDENCE_STEPS / want["seconds"]))
+    return texts
+
+
 def parallel_phase(torch, hb):
     """27 · parallel on the card. World size 1 over NCCL (the one-rank
     group make_mesh starts): ShardedBatchedOptimizer on phase 4's 16-model
@@ -3274,7 +3366,10 @@ def parallel_phase(torch, hb):
     device), spawned from the phase: the same minibatch amortized fit with
     each rank's rows and noise injected, 10 steps, against the
     one-process run on the union of the rows (rtol 1e-5); then the same
-    with the noise drawn, against the one-process run drawing its own."""
+    with the noise drawn, against the one-process run drawing its own.
+    Then the row-sharded full-batch evidence at phase 14's width over
+    one process, one NCCL rank and the two gloo ranks
+    (sharded_evidence_checks), and entry.dryrun_multichip(1) and (2)."""
     import tempfile
 
     import torch.distributed as dist
@@ -3326,6 +3421,18 @@ def parallel_phase(torch, hb):
     print("parallel: world 1 nccl; amortized n=%d minibatch %d, %d steps: steps_per_s "
           "ShardedOptimizer=%.1f Optimizer=%.1f"
           % (AMORT_N, SHARD_MB, SHARD_AMORT_STEPS, amort[True], amort[False]))
+
+    # the row-sharded full-batch evidence at phase 14's width: one process,
+    # then one NCCL rank (a one-rank data axis takes every row)
+    t_added = time.perf_counter()
+    one = sharded_evidence_runs(torch, hb, lambda m, method: getattr(m, method)())
+    mesh = parallel.make_mesh()
+    nccl1 = sharded_evidence_runs(torch, hb, lambda m, method: parallel.ShardedOptimizer(
+        m, method, mesh=mesh))
+    dist.destroy_process_group()
+    for text in sharded_evidence_checks(torch, hb, "sharded evidence world 1 nccl", nccl1, one):
+        print("parallel: " + text)
+    added = time.perf_counter() - t_added
 
     here = os.path.dirname(os.path.abspath(__file__))
     rng = np.random.default_rng(27)
@@ -3388,13 +3495,41 @@ def parallel_phase(torch, hb):
           % (AMORT_N, RANKS_ROWS, RANKS_STEPS, worst["injected"], worst["drawn"], spawn_s,
              "/".join("%.1f" % (RANKS_STEPS / o["injected"]["seconds"]) for o in out),
              RANKS_STEPS / one_s))
-    return {"fleet": fleets, "amortized": amort}
+    t0 = time.perf_counter()
+    blocks = {method: [o["evidence"][method]["block"] for o in out] for method in SHARD_EVIDENCE}
+    for method, b in blocks.items():
+        check(b == [(0, SPARSE_N // 2), (SPARSE_N // 2, SPARSE_N)],
+              "2-rank %s: row blocks %r" % (method, b))
+    for r, o in enumerate(out):
+        for text in sharded_evidence_checks(torch, hb, "sharded evidence 2 ranks gloo, rank %d"
+                                            % r, o["evidence"], one):
+            print("parallel: " + text)
+
+    # the port's twin of __graft_entry__.dryrun_multichip: one NCCL rank,
+    # then two gloo ranks sharing the card
+    from henbun_tpu_torch import entry
+
+    dry = {}
+    for n, backend in ((1, "nccl"), (2, "gloo")):
+        t1 = time.perf_counter()
+        res = entry.dryrun_multichip(n)
+        for o in res:
+            check(o["backend"] == backend and o["device"].startswith("cuda"),
+                  "dryrun_multichip(%d): rank ran on %s over %s" % (n, o["device"], o["backend"]))
+        dry[n] = time.perf_counter() - t1
+        print("parallel: dryrun_multichip(%d) over %s on the card in %.1f s: %s"
+              % (n, backend, dry[n], json.dumps({k: v for k, v in res[0].items()
+                                                 if k not in ("backend", "device")})))
+    added += time.perf_counter() - t0 + max(o["evidence_s"] for o in out)
+    print("parallel: the row-sharded evidence and the dry runs took %.1f s of this phase"
+          % added)
+    return {"fleet": fleets, "amortized": amort, "evidence": one, "dryrun_s": dry}
 
 
 def rank_main(rank, world, directory):
     """One rank of phase 27's two-rank run: gloo over a FileStore in
     `directory`, CUDA tensors, this rank's rows injected, its noise
-    injected and then drawn."""
+    injected and then drawn; then the row-sharded evidence runs."""
     import torch
     import torch.distributed as dist
 
@@ -3429,6 +3564,10 @@ def rank_main(rank, world, directory):
     local_n = len(m._index._train_index) // world
     out.update(backend=dist.get_backend(), device=str(noise.device),
                rows=m._index._train_index[rank * local_n + pos[:RANKS_STEPS]])
+    t0 = time.perf_counter()
+    out["evidence"] = sharded_evidence_runs(
+        torch, hb, lambda model, method: parallel.ShardedOptimizer(model, method, mesh=mesh))
+    out["evidence_s"] = time.perf_counter() - t0
     torch.save(out, os.path.join(directory, "rank%d.pt" % rank))
     dist.destroy_process_group()
 

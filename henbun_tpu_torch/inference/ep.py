@@ -37,7 +37,13 @@ derivative with the sites held fixed, and no graph is kept across sweeps.
 
 Two engines share the sweep: :func:`ep_gp` on an exact [n, n] prior and
 :func:`ep_gp_projected` on the rank-m inducing-point prior f = A v (every
-factorization m x m). The training guard reports the mean |site change|
+factorization m x m). The projected engine's contractions over the rows
+(A^T T A, A^T nu, the site terms, the site-change diagnostics) go through
+``parallel.rows.row_sum``/``row_max``: in a row-sharded
+``ShardedOptimizer`` step each rank sweeps its own block of sites and the
+m x m algebra is the same on every rank; elsewhere they are the identity.
+
+The training guard reports the mean |site change|
 (the evidence is a sum over sites; the max in ``EPResult.delta`` picks
 single float32 tail oscillators at large n).
 """
@@ -52,6 +58,7 @@ from .._settings import settings
 from ..core import context as _ctx
 from ..ops.linalg import eye, matmul_hp, safe_cholesky, tri_solve, tri_solve_T
 from ..ops.quadrature import _nodes
+from ..parallel.rows import row_max, row_sum
 from .laplace import _with_floor
 
 
@@ -149,6 +156,20 @@ def _cavity(mu, sig2, nu, tau, c):
     return tau_c, nu_c
 
 
+def _site_change(dtau, dnu):
+    """The last sweep's (max, mean) |site change| over every rank's rows
+    (``parallel/rows.py``), a diagnostic without gradient. The guard's
+    metric is the mean: the evidence is a sum over sites, so the
+    stationarity-gradient bias scales with the aggregate residual
+    (EPResult.delta keeps the max)."""
+    with torch.no_grad():
+        at, an = torch.abs(dtau), torch.abs(dnu)
+        d = row_max(torch.maximum(torch.max(at), torch.max(an)))
+        count = torch.full((), at.shape[-1], dtype=at.dtype, device=at.device)
+        s_tau, s_nu, count = row_sum(torch.sum(at), torch.sum(an), count)
+        return d, torch.maximum(s_tau / count, s_nu / count)
+
+
 def _sweeps(posterior, loglik_fn, like, sweeps, damping, deg, c):
     """`sweeps` damped parallel sweeps from flat sites, one per row of
     `like` (K or A). Returns the sites and the last sweep's (max, mean)
@@ -157,7 +178,7 @@ def _sweeps(posterior, loglik_fn, like, sweeps, damping, deg, c):
     nu = torch.zeros((n,), dtype=like.dtype, device=like.device)
     tau = torch.zeros((n,), dtype=like.dtype, device=like.device)
     d = d_mean = torch.zeros((), dtype=like.dtype, device=like.device)
-    for _ in range(int(sweeps)):
+    for i in range(int(sweeps)):
         mu, sig2 = posterior(nu, tau)[:2]
         sig2 = torch.maximum(sig2, c.tiny)
         tau_c, nu_c = _cavity(mu, sig2, nu, tau, c)
@@ -166,15 +187,8 @@ def _sweeps(posterior, loglik_fn, like, sweeps, damping, deg, c):
         tau_new = torch.maximum(1.0 / v_hat - tau_c, c.zero)
         nu_new = m_hat / v_hat - nu_c
         nu_new = torch.where(tau_new > 0.0, nu_new, c.zero)
-        d = torch.maximum(
-            torch.max(torch.abs(tau_new - tau)), torch.max(torch.abs(nu_new - nu))
-        )
-        # the guard's metric is the mean |site change|: the evidence is a
-        # sum over sites, so the stationarity-gradient bias scales with the
-        # aggregate residual (EPResult.delta keeps the max)
-        d_mean = torch.maximum(
-            torch.mean(torch.abs(tau_new - tau)), torch.mean(torch.abs(nu_new - nu))
-        )
+        if i == int(sweeps) - 1:
+            d, d_mean = _site_change(tau_new - tau, nu_new - nu)
         nu = (1.0 - damping) * nu + damping * nu_new
         tau = (1.0 - damping) * tau + damping * tau_new
     return nu, tau, d, d_mean
@@ -211,7 +225,7 @@ def _site_terms(loglik_fn, mu, sig2, nu, tau, deg, c):
         - torch.square(nu_c + nu) / (2.0 * (tau_c + tau))
         + torch.square(nu_c) / (2.0 * tau_c)
     )
-    return torch.sum(terms), sig2
+    return row_sum(torch.sum(terms)), sig2
 
 
 def ep_gp(loglik_fn, K, sweeps=30, damping=0.5, jitter=None, deg=20,
@@ -267,11 +281,12 @@ def _floored(P):
 def _projected_posterior(A, AT, Im, nu, tau, jitter):
     """(mu [n], sig2 [n], Lp [m, m], half [m, 1]) from the m-dim
     representation P = I + A^T T A."""
-    P = Im + matmul_hp(AT * tau[None, :], A)
+    AtTA, Atnu = row_sum(matmul_hp(AT * tau[None, :], A), matmul_hp(AT, nu[:, None]))
+    P = Im + AtTA
     Lp = safe_cholesky(_floored(P), jitter)
     V = tri_solve(Lp, AT)  # [m, n]; sig2_i = colnorm^2
     sig2 = torch.sum(torch.square(V), dim=0)
-    half = tri_solve(Lp, matmul_hp(AT, nu[:, None]))
+    half = tri_solve(Lp, Atnu)
     mu = matmul_hp(V.mT, half)[:, 0]
     return mu, sig2, Lp, half
 

@@ -20,6 +20,13 @@ dv*/dtheta = B^-1 dF/dtheta while its value stays v*.
 ``implicit_diff=False`` differentiates through the unrolled iterations
 instead.
 
+Every contraction over the rows (sum loglik, Lk^T g, Lk^T W Lk, the
+ladder's trial psis, the IFT's B and F) goes through
+``parallel.rows.row_sum``: in a row-sharded ``ShardedOptimizer`` step each
+rank holds a block of the rows and the sums are all-reduced, so the m x m
+algebra and the ladder's choice are the same on every rank; elsewhere
+``row_sum`` is the identity.
+
 With ``fused=(tag, params)`` a batched call (a BatchedOptimizer fleet under
 ``torch.func.vmap``) runs the whole Newton forward as one launch of the
 hand-written CUDA kernel K3 (``ops/cuda_newton.py``) on CUDA tensors, or
@@ -45,6 +52,7 @@ from .. import densities
 from .._settings import settings
 from ..ops import cuda_newton
 from ..ops.linalg import _to_front, eye, matmul_hp, safe_cholesky, tri_solve, tri_solve_T
+from ..parallel.rows import row_sum
 
 
 class LaplaceResult(NamedTuple):
@@ -61,12 +69,6 @@ class LaplaceResult(NamedTuple):
     f_var: torch.Tensor
     log_marginal: torch.Tensor
     grad_norm: torch.Tensor
-
-
-def _psi_parts(loglik_fn, Lk, v):
-    f = matmul_hp(Lk, v)
-    ll = torch.sum(loglik_fn(f))
-    return ll - 0.5 * torch.sum(v * v), f
 
 
 def _ll_sum(loglik_fn):
@@ -114,6 +116,13 @@ def _with_floor(B, base=1e-6):
     return B + f * eye(B.shape[-1], B.dtype, B.device)
 
 
+def _row_terms(loglik_fn, Lk, f, g, W):
+    """(sum loglik(f), Lk^T g, Lk^T W Lk): the loop's and the evidence's
+    contractions over the rows, summed over every rank's rows in one
+    reduction (``parallel/rows.py``; the identity in one process)."""
+    return row_sum(torch.sum(loglik_fn(f)), matmul_hp(Lk.mT, g), matmul_hp(Lk.mT, W * Lk))
+
+
 def _newton_iterations(loglik_fn, Lk, newton_iters, jitter):
     """The damped saddle-free Newton loop; returns v_star [m, 1]."""
     m = Lk.shape[-1]
@@ -121,11 +130,13 @@ def _newton_iterations(loglik_fn, Lk, newton_iters, jitter):
     alphas = torch.tensor((1.0, 0.3, 0.1, 0.03), dtype=Lk.dtype, device=Lk.device)
     v = torch.zeros((m, 1), dtype=Lk.dtype, device=Lk.device)
     for _ in range(int(newton_iters)):
-        psi0, f = _psi_parts(loglik_fn, Lk, v)
+        f = matmul_hp(Lk, v)
         g, W_true = _grad_and_curvature(loglik_fn, f)
         W = torch.abs(W_true)  # saddle-free: PD, right scale
-        grad_psi = matmul_hp(Lk.mT, g) - v
-        B = I + matmul_hp(Lk.mT, W * Lk)
+        ll, Ltg, LtWL = _row_terms(loglik_fn, Lk, f, g, W)
+        psi0 = ll - 0.5 * torch.sum(v * v)
+        grad_psi = Ltg - v
+        B = I + LtWL
         Lb = safe_cholesky(_with_floor(B, jitter), jitter)
         half = torch.linalg.solve_triangular(Lb, grad_psi, upper=False)
         d = torch.linalg.solve_triangular(Lb.mT, half, upper=True)
@@ -134,9 +145,10 @@ def _newton_iterations(loglik_fn, Lk, newton_iters, jitter):
         tie_tol = 1e-5 * (1.0 + torch.abs(psi0))
         V_try = v[None] + alphas[:, None, None] * d[None]  # [4, m, 1]
         F_try = matmul_hp(Lk, V_try)
-        psis = torch.func.vmap(lambda ff: torch.sum(loglik_fn(ff)))(F_try) - 0.5 * torch.sum(
-            V_try * V_try, dim=(-2, -1)
-        )
+        # the ladder decides on the psis of all rows: every rank of a
+        # row-sharded step takes the same step
+        lls = row_sum(torch.func.vmap(lambda ff: torch.sum(loglik_fn(ff)))(F_try))
+        psis = lls - 0.5 * torch.sum(V_try * V_try, dim=(-2, -1))
         best_v, best_psi = v, psi0
         for i in range(4):
             take = psis[i] >= best_psi - tie_tol if i == 0 else psis[i] > best_psi
@@ -248,9 +260,9 @@ def _attach_ift(loglik_fn, Lk, v_star, jitter):
     with torch.no_grad():
         Lk_d = Lk.detach()
         W = _curvature(loglik_fn, matmul_hp(Lk_d, v))
-        B = eye(Lk.shape[-1], Lk.dtype, Lk.device) + matmul_hp(Lk_d.mT, W * Lk_d)
+        B = eye(Lk.shape[-1], Lk.dtype, Lk.device) + row_sum(matmul_hp(Lk_d.mT, W * Lk_d))
         Lb = safe_cholesky(_with_floor(B, jitter), jitter)
-    F = matmul_hp(Lk.mT, torch.func.grad(_ll_sum(loglik_fn))(matmul_hp(Lk, v))) - v
+    F = row_sum(matmul_hp(Lk.mT, torch.func.grad(_ll_sum(loglik_fn))(matmul_hp(Lk, v)))) - v
     return v + tri_solve_T(Lb, tri_solve(Lb, F - F.detach()))
 
 
@@ -292,11 +304,13 @@ def laplace_whitened(loglik_fn, Lk, newton_iters=15, jitter=1e-6,
         v_star = _newton_iterations(loglik_fn, Lk, newton_iters, jitter)
 
     m = Lk.shape[-1]
-    psi, f_star = _psi_parts(loglik_fn, Lk, v_star)
+    f_star = matmul_hp(Lk, v_star)
     # gradient and true curvature at the mode for the evidence/covariance
     g, W = _grad_and_curvature(loglik_fn, f_star)
-    grad_psi = matmul_hp(Lk.mT, g) - v_star
-    B = eye(m, Lk.dtype, Lk.device) + matmul_hp(Lk.mT, W * Lk)
+    ll, Ltg, LtWL = _row_terms(loglik_fn, Lk, f_star, g, W)
+    psi = ll - 0.5 * torch.sum(v_star * v_star)
+    grad_psi = Ltg - v_star
+    B = eye(m, Lk.dtype, Lk.device) + LtWL
     Lb = safe_cholesky(_with_floor(B, jitter), jitter)
     logdet = 2.0 * torch.sum(torch.log(torch.diagonal(Lb, dim1=-2, dim2=-1)))
     log_marginal = psi - 0.5 * logdet

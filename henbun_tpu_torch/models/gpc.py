@@ -34,6 +34,7 @@ from .. import densities, gp, transforms
 from ..core.param import Data, MinibatchData, Variable
 from ..model import Model, AutoOptimize
 from ..ops.linalg import matmul_hp
+from ..parallel.rows import row_sharded
 
 
 class GPC(Model):
@@ -197,7 +198,10 @@ class SparseGPC(Model):
 
     Train full-batch (the Newton mode is a deterministic function of all
     fed rows): a minibatch objective would be the Laplace evidence of the
-    minibatch, stochastic and unscaled.
+    minibatch, stochastic and unscaled. The evidence objectives are
+    ``row_sharded``: under a ``ShardedOptimizer`` with several data ranks
+    each rank holds a block of the rows and the row sums are all-reduced
+    (``parallel/rows.py``).
     """
 
     def setUp(self, X, Y, num_inducing=128, kern=None, newton_iters=15,
@@ -225,6 +229,7 @@ class SparseGPC(Model):
         )
 
     @AutoOptimize()
+    @row_sharded
     def log_marginal_laplace(self):
         """Sparse Laplace evidence: deterministic; trains the kernel
         hyperparameters (and z under ``train_z=True``, guarded by the
@@ -270,6 +275,7 @@ class SparseGPC(Model):
         return p
 
     @AutoOptimize()
+    @row_sharded
     def log_posterior(self):
         """Sparse Laplace evidence + weak hyperpriors: the target for
         Bayesian hyperparameters at inducing-point scale:
@@ -283,6 +289,7 @@ class SparseGPC(Model):
 
     # --- expectation propagation (inference/ep.py, projected) --------------
     @AutoOptimize()
+    @row_sharded
     def log_marginal_ep(self):
         """Sparse (projected) EP evidence, the moment-matching counterpart
         of ``log_marginal_laplace`` at the same O(n m^2) per sweep, under

@@ -21,6 +21,7 @@ from .. import densities, gp, transforms, variationals
 from ..core.param import Data, Variable
 from ..model import Model, AutoOptimize
 from ..ops.linalg import fill_triangular, matmul_hp, safe_cholesky, tri_solve
+from ..parallel.rows import row_sharded
 
 
 class GPR(Model):
@@ -265,7 +266,8 @@ class SparseGPRobust(Model):
     Student-t is not log-concave: the Laplace path relies on the
     saddle-free |W| Newton ladder, the EP path on clipped sites and
     conservative damping (0.3). Train full-batch (see SparseGPC's note on
-    minibatch evidence).
+    minibatch evidence); the evidence objectives are ``row_sharded`` as
+    SparseGPC's are.
     """
 
     def setUp(self, X, Y, num_inducing=64, kern=None, newton_iters=15,
@@ -300,6 +302,7 @@ class SparseGPRobust(Model):
         ).log_marginal
 
     @AutoOptimize()
+    @row_sharded
     def log_marginal_laplace(self):
         """Sparse Laplace evidence (saddle-free Newton; IFT gradients)."""
         from ._zguard import z_guard
@@ -307,6 +310,7 @@ class SparseGPRobust(Model):
         return self._laplace_evidence() - z_guard(self)
 
     @AutoOptimize()
+    @row_sharded
     def log_marginal_ep(self):
         """Projected EP evidence through the unrolled sweeps
         (``implicit_diff=False``): as the noise variance sharpens, outlier
@@ -335,6 +339,7 @@ class SparseGPRobust(Model):
         return p
 
     @AutoOptimize()
+    @row_sharded
     def log_posterior(self):
         """Sparse robust (Student-t) Laplace evidence + weak hyperpriors:
         Bayesian hyperparameters for heavy-tailed regression at

@@ -6,11 +6,13 @@ Where the JAX package lets GSPMD insert the collectives from sharding
 annotations, each rank here runs the single-device driver on its share
 and the collectives are written out on the mesh dimension's process group:
 one all-reduce of the gradients (and the objective) a step for the data
-dimension, one all-reduce of the fleet's summed objective a step for the
-chain dimension. Both drivers are subclasses of the single-device ones, so
-nan-guard rollback, callbacks, StepMetrics and both minibatch modes are
-inherited; a non-finite value on one rank reaches every rank through the
-all-reduce, so all ranks roll back together.
+dimension, with the all-reduces of a row-sharded full-batch objective's
+row sums inside the step (``parallel/rows.py``); one all-reduce of the
+fleet's summed objective a step for the chain dimension. Both optimizers
+are subclasses of the single-device ones, so nan-guard rollback,
+callbacks, StepMetrics and both minibatch modes are inherited; a
+non-finite value on one rank reaches every rank through the all-reduce,
+so all ranks roll back together.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch.distributed as dist
 from ..batched import BatchedOptimizer
 from ..model import Optimizer, _resolve_method
 from . import mesh as mesh_mod
+from . import rows
 
 
 def _flat_all_reduce(tensors, group, op=dist.ReduceOp.SUM):
@@ -96,9 +99,19 @@ class ShardedOptimizer(Optimizer):
     data size over the rows evaluated, each rank's value is an unbiased
     estimate and the mean of the ranks' is exactly the global B-row
     objective that the JAX package's GSPMD program differentiates (the B
-    rows being the union of the ranks'), and so is the mean gradient. A
-    full-batch objective (``minibatch_size=None``) runs whole on every
-    rank.
+    rows being the union of the ranks'), and so is the mean gradient.
+
+    A full-batch objective (``minibatch_size=None``) runs whole on every
+    rank, unless it is declared ``parallel.rows.row_sharded`` (the
+    sparse Laplace and EP evidence): then each data rank takes one
+    contiguous block of every MinibatchData array's rows (all of them, as
+    the one-process full-batch step; n rows over k ranks give the first
+    n mod k blocks one row more) and evaluates the step inside
+    ``rows.sharded_rows``, where the objective's row sums are
+    all-reduced; the mean of the ranks' gradients is then the one-process
+    gradient (the derivation is in ``parallel/rows.py``). The JAX package
+    gets the same split from GSPMD, which shards every MinibatchData
+    array over ``data`` whatever the batch.
 
     Build the model with the same seed on every rank: the ranks' model
     generators then stay in step, and every draw is one global draw. The
@@ -119,6 +132,7 @@ class ShardedOptimizer(Optimizer):
             device_type=model.device.type)
         self._group = self.mesh.get_group(mesh_mod.DATA_AXIS)
         self._minibatched = False
+        self._row_block = None  # this rank's (start, stop) of a row-sharded full batch
         self._axes = {}  # {data signature: {path: row axis}}
 
     def _n_data(self):
@@ -153,6 +167,9 @@ class ShardedOptimizer(Optimizer):
         return self._axes[key]
 
     def _step(self, d, noise):
+        if self._row_block is not None:
+            with rows.sharded_rows(self._group):
+                return super()._step(d, noise)
         if noise is None and self._minibatched and self._n_data() > 1:
             axes = self._row_axes(d)
             if axes:
@@ -193,7 +210,11 @@ class ShardedOptimizer(Optimizer):
         optimize() call: rows [r L, (r + 1) L) of the split truncated to
         n_data L rows. Returns (shard data, None, L)."""
         self._minibatched = minibatch_size is not None
+        self._row_block = None
         if minibatch_size is None:
+            if self._n_data() > 1 and self._mb_paths and rows.is_row_sharded(
+                    self.likelihood_method):
+                return self._row_shard(data), None, 1
             return data, None, 1
         model = self.model
         if model._index.data_size is None:
@@ -220,6 +241,21 @@ class ShardedOptimizer(Optimizer):
             )
         r = self._rank()
         return self._take_rows(data, train_idx[r * local_n:(r + 1) * local_n]), None, local_n
+
+    def _row_shard(self, data):
+        """This rank's contiguous block of every MinibatchData array's rows
+        for a row-sharded full batch; records the block."""
+        n = next(data[p].shape[0] for p in self._mb_paths if p in data)
+        nd, r = self._n_data(), self._rank()
+        size, extra = divmod(n, nd)
+        if size == 0:
+            raise ValueError(
+                "%d rows cannot be split over the mesh data axis (%d ranks)" % (n, nd))
+        start = r * size + min(r, extra)
+        stop = start + size + (r < extra)
+        self._row_block = (start, stop)
+        return {path: arr[start:stop] if path in self._mb_paths else arr
+                for path, arr in data.items()}
 
     def _make_select_batch(self, minibatch_size, train_size, mode):
         """B/n_data rows a step from this rank's shard of `train_size`

@@ -11,7 +11,8 @@ graph where the target never reads the host and eager where it does, the
 heteroscedastic fleet and the multi-output natural gradient on K1 and K2,
 streaming into a model on the card, K1 and K2 through their custom ops,
 a served multi-output predictor, a sharded fleet over a one-rank NCCL
-mesh, and the JAX package's accuracy gates
+mesh, the port's dry run (``entry.dryrun_multichip``) on one NCCL rank,
+and the JAX package's accuracy gates
 of the heteroscedastic, multi-output, deep GP, GP-LVM and Expert GPR
 families at its tests' step counts and limits.
 
@@ -847,6 +848,18 @@ def test_sharded_fleet_over_nccl_matches_the_batched_optimizer():
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def test_dryrun_multichip_one_rank_over_nccl():
+    """henbun_tpu_torch.entry's dry run on one NCCL rank on the card: the
+    six sharded mechanisms finish finite."""
+    from henbun_tpu_torch import entry
+
+    _card()
+    (out,) = entry.dryrun_multichip(1)
+    assert out["backend"] == "nccl" and out["device"].startswith("cuda"), out
+    assert {"svi", "fleet", "log_marginal_laplace", "log_marginal_ep", "chees",
+            "smc"} <= set(out)
 
 
 def test_hetero_accuracy_gate_on_the_card():

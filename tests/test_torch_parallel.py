@@ -1,7 +1,9 @@
 """henbun_tpu_torch.parallel on the CPU: mesh sizing, ShardedOptimizer,
-ShardedBatchedOptimizer, the chain-sharded samplers and sharded
-streaming, on two gloo ranks against the JAX package and against the
-one-process port.
+ShardedBatchedOptimizer, the chain-sharded samplers, sharded streaming,
+the row-sharded full-batch evidence and the twins of the JAX package's
+sharded nan guard, save/restore, natural-gradient GPR and SVGP tests,
+on two gloo ranks against the JAX package and against the one-process
+port.
 
 The two ranks are ``tests/test_torch_parallel_ranks.py`` processes that meet
 through a FileStore under tmp_path; they run every case once (a module
@@ -11,7 +13,11 @@ objectives rtol 1e-5 against the JAX package's ShardedOptimizer on its
 the port's sharded runs against the one-process port at rtol 1e-5 (a
 mean of two ranks' float32 sums against one sum over the union), the
 chain-sharded samplers at rtol 1e-6 (the cross-chain quantities are
-computed from gathered per-chain values by the one-process arithmetic).
+computed from gathered per-chain values by the one-process arithmetic);
+the row-sharded evidence (SparseGPC, SparseGPRobust at n = 200 and 201,
+m = 12, test_torch_sparse_evidence.py's data) at rtol 1e-5 and 1e-5 of
+each leaf against the one-process port, 1e-10 in float64, and at rtol
+1e-4 against the JAX package's sharded value.
 """
 import os
 import pathlib
@@ -26,6 +32,7 @@ import optax
 import pytest
 import torch
 
+import henbun_tpu as jhb
 from henbun_tpu import models as jmodels
 from henbun_tpu.parallel import make_mesh as jax_mesh
 from henbun_tpu.parallel import ShardedOptimizer as JaxSharded
@@ -35,6 +42,7 @@ from henbun_tpu_torch.inference import chees, hmc, nuts, smc
 from henbun_tpu_torch.interop import params_from_jax
 
 import test_torch_parallel_ranks as ranks
+from test_torch_sparse_evidence import _cls, _ep_reference, _outlier_bed
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 WORLD = 2
@@ -43,6 +51,8 @@ M = 4           # fleet models, two a rank
 K = 3           # minibatch rows a rank
 CHAINS = 8
 PARTICLES = 16
+SVGP_N = 128    # tests/test_parallel.py's SVGP twin: rows,
+SVGP_ROWS = 8   # and minibatch rows a rank
 
 
 def _u(key, path="q", n=N):
@@ -94,6 +104,12 @@ def run(tmp_path_factory):
     n, row_floats, slices, _ = thb.io.write_dataset(path, sx, sy)
     inputs.update(stream_path=np.array(path), stream_n=n, stream_row_floats=row_floats,
                   stream_slices=np.asarray(slices))
+    inputs.update(_evidence_inputs(), mean_data=_mean_data(),
+                  state_path=np.array(str(d / "state.pt")))
+    sv_X = np.sort(rng.uniform(0, 6, (SVGP_N, 1)).astype(np.float32), axis=0)
+    svgp_local = (SVGP_N - SVGP_N // 10) // WORLD  # the Indexer's train split, per rank
+    inputs.update(svgp_X=sv_X, svgp_Y=(np.sin(sv_X) + 0.3 * rng.normal(size=sv_X.shape)).astype(
+        np.float32), svgp_pos=rng.integers(0, svgp_local, (WORLD, ranks.TWIN_STEPS, SVGP_ROWS)))
     np.savez(d / "inputs.npz", **inputs)
     thb.io.loader._lib()  # build the loader once, before the ranks load it
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
@@ -112,6 +128,54 @@ def run(tmp_path_factory):
         assert p.returncode == 0, log[-4000:]
     out = [torch.load(d / ("rank%d.pt" % r), weights_only=False) for r in range(WORLD)]
     return inputs, jax_hist, out
+
+
+def _mean_data(n=64):
+    rng = np.random.default_rng(0)
+    return (rng.normal(size=(n, 2)) + np.array([1.0, -2.0])).astype(np.float32)
+
+
+EVIDENCE_DATA = {"gpc": _cls, "robust": lambda n, seed: _outlier_bed(n, seed=3)}
+EVIDENCE_MODELS = {"gpc": (jmodels.SparseGPC, thb.models.SparseGPC),
+                   "robust": (jmodels.SparseGPRobust, thb.models.SparseGPRobust)}
+
+
+def _evidence_inputs():
+    """Each evidence case's data and the JAX package's weights (after
+    ``initialize()``, frozen z included), as ``se_*`` arrays."""
+    out = {}
+    for family, n in {(f, n) for _, f, _, n in ranks.EVIDENCE} | {("gpc", 400), ("robust", 201)}:
+        X, Y = EVIDENCE_DATA[family](n, seed=0)
+        jhb.set_seed(0)
+        jm = EVIDENCE_MODELS[family][0](seed=0, X=X, Y=Y, num_inducing=ranks.M_IND)
+        jm.initialize()
+        out["se_%s_%d_X" % (family, n)], out["se_%s_%d_Y" % (family, n)] = X, Y
+        out.update({"se_p:%s_%d:%s" % (family, n, k): v.numpy()
+                    for k, v in params_from_jax(jm.param_dict()).items()})
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_evidence(run):
+    """The JAX package's ShardedOptimizer value of each evidence case at
+    the same weights: on its 8-device CPU mesh, on 3 devices for 201 rows
+    (GSPMD needs the rows to divide), the EP floor pinned to the port's."""
+    inputs = run[0]
+    out = {}
+    for name, family, method, n in ranks.EVIDENCE:
+        X, Y = inputs["se_%s_%d_X" % (family, n)], inputs["se_%s_%d_Y" % (family, n)]
+        jhb.set_seed(0)
+        jm = EVIDENCE_MODELS[family][0](seed=0, X=X, Y=Y, num_inducing=ranks.M_IND)
+        jm.initialize()
+        mesh = jax_mesh() if n % 8 == 0 else jax_mesh(devices=jax.devices()[:3])
+        mp = pytest.MonkeyPatch()
+        try:
+            _ep_reference(mp, method)
+            jopt = JaxSharded(jm, method, mesh=mesh).compile(optax.adam(0.05))
+            out[name] = float(jopt.run())
+        finally:
+            mp.undo()
+    return out
 
 
 def _same_on_ranks(out, case, key):
@@ -318,3 +382,193 @@ def test_streaming_into_a_sharded_optimizer(run):
         assert o["streaming"]["train_size"] == 512
         np.testing.assert_allclose(o["streaming"]["w"], [1.0, -2.0, 0.5], atol=0.1)
     np.testing.assert_array_equal(out[0]["streaming"]["w"], out[1]["streaming"]["w"])
+
+
+# ------------------------------------------------- row-sharded full-batch evidence
+def _leaves_close(got, want, what, tol=1e-5):
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k], v, rtol=0, atol=tol * max(np.abs(v).max(), 1e-6),
+                                   err_msg="%s %s" % (what, k))
+
+
+def _one_process_evidence(inputs, family, n, method):
+    """The one-process port: its zero-learning-rate step (in float32 and
+    in float64), then 5 Adam steps, as the ranks take them."""
+    got = ranks.evidence_step(getattr(ranks.evidence_model(inputs, family, n), method)())
+    with ranks.float64():
+        got["float64"] = ranks.evidence_step(
+            getattr(ranks.evidence_model(inputs, family, n), method)())
+    m = ranks.evidence_model(inputs, family, n)
+    opt = getattr(m, method)().compile(learning_rate=0.05)
+    opt.optimize(maxiter=ranks.STEPS)
+    got.update(hist=opt.history[-1], params=ranks.params_of(m),
+               ep_delta=[r.get("ep_delta") for r in opt.metrics.rows])
+    return got
+
+
+@pytest.mark.parametrize("case", ranks.EVIDENCE, ids=[c[0] for c in ranks.EVIDENCE])
+def test_row_sharded_evidence_matches_the_one_process_port(run, case):
+    """SparseGPC's Laplace and EP evidence and SparseGPRobust's Laplace
+    evidence under ShardedOptimizer(minibatch_size=None) on two ranks:
+    each rank holds one contiguous block of the rows (201 rows: 101 and
+    100), and the objective, every gradient leaf and 5 Adam steps equal
+    the one-process port's (rtol 1e-5; leaves within 1e-5 of their
+    largest entry), on both ranks alike. In float64 the objective and the
+    gradient agree to 1e-10: the split sums are exact. Where float32's
+    reduction order cannot hold a leaf to 1e-5 (measured: the 201-row
+    lengthscale gradient, 1.2e-5 apart, the one-process float32 itself
+    1.1e-5 from float64), both float32 leaves are held to the float64 one
+    at 1e-4."""
+    inputs, _, out = run
+    name, family, method, n = case
+    want = _one_process_evidence(inputs, family, n, method)
+    blocks = [tuple(o["sparse_evidence"][name]["block"]) for o in out]
+    assert blocks == [(0, (n + 1) // 2), ((n + 1) // 2, n)]
+    w64 = want["float64"]
+    for o in out:
+        got = o["sparse_evidence"][name]
+        assert got["stats"]["calls"] > 0
+        np.testing.assert_allclose(got["float64"]["value"], w64["value"], rtol=1e-10)
+        _leaves_close(got["float64"]["grads"], w64["grads"], name + " float64 gradient", 1e-10)
+        np.testing.assert_allclose(got["value"], want["value"], rtol=1e-5, err_msg=name)
+        for k, v in want["grads"].items():
+            scale = max(np.abs(v).max(), 1e-6)
+            if np.abs(got["grads"][k] - v).max() <= 1e-5 * scale:
+                continue
+            _leaves_close({k: got["grads"][k]}, {k: w64["grads"][k]}, name + " sharded/f64", 1e-4)
+            _leaves_close({k: v}, {k: w64["grads"][k]}, name + " one process/f64", 1e-4)
+        np.testing.assert_allclose(got["hist"], want["hist"], rtol=1e-5, err_msg=name)
+        _leaves_close(got["params"], want["params"], name + " after 5 steps")
+    a, b = (o["sparse_evidence"][name]["params"] for o in out)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    if method.endswith("_ep"):
+        # converged: the last sweep's mean site change is float32 noise on
+        # either side, well under the guard's 1e-2
+        for o in out:
+            assert max(o["sparse_evidence"][name]["ep_delta"]) < 1e-4
+        assert max(want["ep_delta"]) < 1e-4
+
+
+@pytest.mark.parametrize("case", ranks.EVIDENCE, ids=[c[0] for c in ranks.EVIDENCE])
+def test_row_sharded_evidence_matches_the_jax_sharded_optimizer(run, jax_evidence, case):
+    _, _, out = run
+    for o in out:
+        np.testing.assert_allclose(o["sparse_evidence"][case[0]]["value"], jax_evidence[case[0]],
+                                   rtol=1e-4, err_msg=case[0])
+
+
+def test_row_sharded_ep_delta_is_the_one_process_mean(run):
+    """After 3 sweeps the mean site change is large: each rank reports the
+    mean over all rows, the one-process value (rtol 1e-4), so ShardedOptimizer's
+    max over ranks changes nothing."""
+    inputs, _, out = run
+    want = ranks.evidence_step(ranks.evidence_model(inputs, "gpc", 200, ranks.FewSweeps).ep_few())
+    assert want["metrics"]["ep_delta"] > 1e-3
+    for o in out:
+        got = o["evidence_collectives"]["ep_few"]
+        np.testing.assert_allclose(got["metrics"]["ep_delta"], want["metrics"]["ep_delta"],
+                                   rtol=1e-4)
+        np.testing.assert_allclose(got["value"], want["value"], rtol=1e-5)
+    a, b = (o["evidence_collectives"]["ep_few"]["metrics"]["ep_delta"] for o in out)
+    assert a == b
+
+
+def test_row_sharded_unrolled_ep_gradient_is_exact(run):
+    """SparseGPRobust.log_marginal_ep differentiates through its 60
+    unrolled sweeps; each sweep's all-reduce carries its gradient back
+    (its backward all-reduces too): in float64, two ranks (101 and 100
+    rows) give the one-process objective and gradient to 1e-10."""
+    inputs, _, out = run
+    with ranks.float64():
+        want = ranks.evidence_step(ranks.evidence_model(inputs, "robust", 201).log_marginal_ep())
+    for o in out:
+        got = o["evidence_collectives"]["robust_ep"]
+        assert got["stats"]["calls"] > 60
+        np.testing.assert_allclose(got["value"], want["value"], rtol=1e-10)
+        _leaves_close(got["grads"], want["grads"], "unrolled EP float64 gradient", 1e-10)
+
+
+def test_row_sum_collectives_do_not_grow_with_the_rows(run):
+    """The twin of test_parallel.py's collective contract: a sparse-Laplace
+    step's all-reduces of row sums (forward and backward) are the same in
+    number and bytes at 200 and at 400 rows, each at most m^2 + m + 5
+    floats (the Newton system, its gradient and the ladder's psis)."""
+    _, _, out = run
+    for o in out:
+        got = o["evidence_collectives"]
+        assert got[200] == got[400] and got[200]["calls"] > 0
+        assert got[200]["bytes"] <= 4 * (ranks.M_IND ** 2 + ranks.M_IND + 5) * got[200]["calls"]
+
+
+def test_full_batch_objective_not_opted_in_runs_whole(run):
+    inputs, _, out = run
+    thb.set_seed(0)
+    m = ranks.MeanModel(seed=0, data=inputs["mean_data"], device="cpu")
+    opt = m.obj().compile(learning_rate=0.05)
+    opt.optimize(maxiter=ranks.STEPS)
+    for o in out:
+        got = o["evidence_collectives"]["not_opted_in"]
+        assert got["block"] is None and got["stats"] == {"calls": 0, "bytes": 0}
+        np.testing.assert_allclose(got["hist"], opt.history[-1], rtol=1e-6)
+
+
+# ------------------------- the twins of tests/test_parallel.py's optimizer tests
+# The JAX tests run 300-600 steps at n = 2048 on 8 devices; these run 10-20
+# steps at tens of rows, which is what tier-1's clock affords.
+def test_sharded_nan_guard_rollback(run):
+    """A step that is non-finite twice raises on every rank and leaves the
+    parameters at the last good (here: the initial) values."""
+    _, _, out = run
+    for o in out:
+        got = o["nan_guard"]
+        assert "non-finite" in got["raised"]
+        for k, v in got["before"].items():
+            assert np.isfinite(v).all()
+            np.testing.assert_array_equal(got["after"][k], v, err_msg=k)
+
+
+def test_sharded_save_restore_bitwise(run):
+    """save_state mid-run (rank 0 writes), continue, against a fresh
+    ShardedOptimizer restoring that file and continuing: bitwise equal."""
+    _, _, out = run
+    for o in out:
+        got = o["save_restore"]
+        assert got["step"] == ranks.TWIN_STEPS // 2
+        for k, v in got["continued"].items():
+            np.testing.assert_array_equal(got["restored"][k], v, err_msg=k)
+    _same_on_ranks(out, "save_restore", "continued")
+
+
+def test_sharded_natgrad_gpr(run):
+    """natural_gradient under the sharded full-batch step (not opted in:
+    whole on every rank) equals the one-process port drawing the same
+    noise from the same seed."""
+    _, _, out = run
+    from henbun_tpu_torch import optimizers
+
+    thb.set_seed(0)
+    X, Y = thb.models.make_sine_dataset(n=24)
+    m = thb.models.GPR(seed=0, X=X, Y=Y, q_shape="fullrank", device="cpu")
+    m.q.analytic_kl = True
+    opt = m.ELBO_gaussian().compile(optimizers.natural_gradient(m, gamma=0.01,
+                                                                rest=thb.adam(0.02)))
+    opt.optimize(maxiter=ranks.TWIN_STEPS)
+    for o in out:
+        _assert_matches(o["natgrad_gpr"], opt.history[-1], m)
+
+
+def test_sharded_svgp(run):
+    """SVGPRegression.ELBO on minibatch rows: each rank's rows injected,
+    the noise drawn, against the one-process port on the union of the
+    rows drawing its own."""
+    inputs, _, out = run
+    union = np.concatenate([o["svgp"]["rows"] for o in out], axis=1)
+    thb.set_seed(0)
+    m = thb.models.SVGPRegression(seed=0, X=inputs["svgp_X"], Y=inputs["svgp_Y"],
+                                  num_inducing=8, device="cpu")
+    opt = m.ELBO().compile(learning_rate=0.01)
+    opt.row_source = lambda s: union[s]
+    opt.optimize(maxiter=ranks.TWIN_STEPS, minibatch_size=union.shape[1])
+    for o in out:
+        _assert_matches(o["svgp"], opt.history[-1], m)

@@ -19,10 +19,19 @@ sys.path.insert(0, ROOT)
 
 import henbun_tpu_torch as thb  # noqa: E402
 from henbun_tpu_torch.inference import chees, hmc, nuts, smc  # noqa: E402
+from henbun_tpu_torch.inference.ep import ep_gp_projected  # noqa: E402
 from henbun_tpu_torch.parallel import (  # noqa: E402
-    ShardedBatchedOptimizer, ShardedOptimizer, initialize_distributed, make_mesh)
+    ShardedBatchedOptimizer, ShardedOptimizer, initialize_distributed, make_mesh, row_sharded,
+    rows)
 
 STEPS = 5
+TWIN_STEPS = 20
+# the row-sharded evidence cases: (name, family, objective, rows)
+EVIDENCE = (("gpc_laplace", "gpc", "log_marginal_laplace", 200),
+            ("gpc_ep", "gpc", "log_marginal_ep", 200),
+            ("robust_laplace", "robust", "log_marginal_laplace", 200),
+            ("gpc_laplace_201", "gpc", "log_marginal_laplace", 201))
+M_IND = 12
 PREC = np.array([[2.0, 0.3, 0.0], [0.3, 1.0, 0.2], [0.0, 0.2, 0.5]], np.float32)
 
 
@@ -35,6 +44,73 @@ class LinReg(thb.Model):
     @thb.AutoOptimize()
     def obj(self):
         return -torch.sum(torch.square(self.y - torch.matmul(self.x, self.w)))
+
+
+class MeanModel(thb.Model):
+    """tests/test_parallel.py's _MeanModel: p converges to the column
+    means of its minibatched rows."""
+
+    def setUp(self, data):
+        self.x = thb.MinibatchData(data)
+        self.p = thb.Variable([2])
+
+    @thb.AutoOptimize()
+    def obj(self):
+        return -torch.sum(torch.square(self.x - self.p))
+
+
+class Bad(thb.Model):
+    """An objective that is NaN everywhere (tests/test_parallel.py)."""
+
+    def setUp(self):
+        self.p = thb.Variable([2])
+
+    @thb.AutoOptimize()
+    def bad(self):
+        return torch.log(-torch.ones(()) - torch.sum(torch.square(self.p)))
+
+
+class FewSweeps(thb.models.SparseGPC):
+    """The projected EP evidence after 3 sweeps, far from converged, so
+    that its reported ep_delta is a mean of large site changes."""
+
+    @thb.AutoOptimize()
+    @row_sharded
+    def ep_few(self):
+        return ep_gp_projected(self._loglik(), self._A(self.x), sweeps=3,
+                               delta_tol=1e9).log_marginal
+
+
+def evidence_model(inp, family, n, cls=None):
+    """The sparse evidence model at n rows with the JAX package's weights,
+    in the current float type."""
+    X, Y = inp["se_%s_%d_X" % (family, n)], inp["se_%s_%d_Y" % (family, n)]
+    prefix = "se_p:%s_%d:" % (family, n)
+    cls = cls or {"gpc": thb.models.SparseGPC, "robust": thb.models.SparseGPRobust}[family]
+    m = cls(seed=0, X=X, Y=Y, num_inducing=M_IND, device="cpu")
+    dtype = thb.settings.dtypes.float_type
+    m.set_param_dict({k[len(prefix):]: torch.tensor(inp[k]).to(dtype) for k in inp
+                      if k.startswith(prefix)})
+    return m
+
+
+def float64():
+    """Settings under which models are built and run in float64."""
+    cfg = thb.settings.get_settings()
+    cfg.dtypes.float_type = torch.float64
+    return thb.settings.temp_settings(cfg)
+
+
+def evidence_step(opt):
+    """One step of `opt` with a zero learning rate: the objective, and the
+    gradient left in each leaf (of the negated objective, after the
+    ShardedOptimizer's reduction), with the row-sum collectives it took."""
+    opt.compile(optimizer=lambda params: torch.optim.SGD(params, lr=0.0))
+    rows.reset_stats()
+    opt.optimize(maxiter=1)
+    grads = {k: t.grad.detach().numpy().copy() for k, t in opt._trainable.items()}
+    return {"value": float(opt.history[-1][0]), "grads": grads, "stats": dict(rows.stats),
+            "metrics": dict(opt.metrics.rows[-1])}
 
 
 def gauss_lp():
@@ -195,8 +271,121 @@ def streaming(inp, rank, world):
     return {"w": m.w.value[:, 0].copy(), "train_size": m._index.train_size}
 
 
+def sparse_evidence(inp, rank, world):
+    """The row-sharded evidence: each case's objective and gradient at the
+    JAX package's weights, and 5 Adam steps."""
+    out = {}
+    for name, family, method, n in EVIDENCE:
+        opt = ShardedOptimizer(evidence_model(inp, family, n), method, mesh=make_mesh())
+        got = evidence_step(opt)
+        got["block"] = opt._row_block
+        with float64():
+            got["float64"] = evidence_step(ShardedOptimizer(evidence_model(inp, family, n), method,
+                                                            mesh=make_mesh()))
+        m = evidence_model(inp, family, n)
+        opt = ShardedOptimizer(m, method, mesh=make_mesh()).compile(learning_rate=0.05)
+        opt.optimize(maxiter=STEPS)
+        got.update(hist=opt.history[-1], params=params_of(m),
+                   ep_delta=[r.get("ep_delta") for r in opt.metrics.rows])
+        out[name] = got
+    return out
+
+
+def evidence_collectives(inp, rank, world):
+    """The row sums' all-reduces a step at 200 and at 400 rows, the
+    few-sweep EP's ep_delta, SparseGPRobust's unrolled EP in float64 at
+    201 rows, and a full-batch objective that has not opted in (it runs
+    whole on every rank: no row block, no row collective)."""
+    out = {}
+    for n in (200, 400):
+        got = evidence_step(ShardedOptimizer(evidence_model(inp, "gpc", n), "log_marginal_laplace",
+                                             mesh=make_mesh()))
+        out[n] = got["stats"]
+    opt = ShardedOptimizer(evidence_model(inp, "gpc", 200, FewSweeps), "ep_few", mesh=make_mesh())
+    out["ep_few"] = evidence_step(opt)
+    with float64():
+        out["robust_ep"] = evidence_step(ShardedOptimizer(
+            evidence_model(inp, "robust", 201), "log_marginal_ep", mesh=make_mesh()))
+    thb.set_seed(0)
+    m = MeanModel(seed=0, data=inp["mean_data"], device="cpu")
+    opt = ShardedOptimizer(m, "obj", mesh=make_mesh()).compile(learning_rate=0.05)
+    rows.reset_stats()
+    opt.optimize(maxiter=STEPS)
+    out["not_opted_in"] = {"block": opt._row_block, "stats": dict(rows.stats),
+                           "hist": opt.history[-1]}
+    return out
+
+
+def nan_guard(inp, rank, world):
+    """tests/test_parallel.py::test_sharded_nan_guard_rollback."""
+    m = Bad(seed=0, device="cpu")
+    opt = ShardedOptimizer(m, "bad", mesh=make_mesh()).compile(learning_rate=0.01)
+    before = params_of(m)
+    try:
+        opt.optimize(maxiter=10)
+        raised = "no error"
+    except FloatingPointError as err:
+        raised = str(err)
+    return {"raised": raised, "before": before, "after": params_of(m)}
+
+
+def save_restore(inp, rank, world):
+    """tests/test_parallel.py::test_sharded_save_restore_bitwise at 64 rows,
+    minibatch 8, 10 + 10 steps: every rank continues, and restores rank 0's
+    file into a fresh ShardedOptimizer."""
+    path = str(inp["state_path"])
+
+    def fresh():
+        thb.set_seed(0)
+        m = MeanModel(seed=0, data=inp["mean_data"], device="cpu")
+        return m, ShardedOptimizer(m, "obj", mesh=make_mesh()).compile(learning_rate=0.05)
+
+    m1, o1 = fresh()
+    o1.optimize(maxiter=TWIN_STEPS // 2, minibatch_size=8)
+    o1.save_state(path)
+    o1.optimize(maxiter=TWIN_STEPS // 2, minibatch_size=8)
+    m2, o2 = fresh()
+    o2.restore_state(path)
+    step = o2.global_step
+    o2.optimize(maxiter=TWIN_STEPS // 2, minibatch_size=8)
+    return {"continued": params_of(m1), "restored": params_of(m2), "step": step}
+
+
+def natgrad_gpr(inp, rank, world):
+    """tests/test_parallel.py::test_sharded_natgrad_gpr at n = 24, 20
+    steps: the full-batch GPR ELBO under natural_gradient(0.01,
+    rest=Adam(0.02)), the noise drawn from the shared seed."""
+    from henbun_tpu_torch import optimizers
+
+    thb.set_seed(0)
+    X, Y = thb.models.make_sine_dataset(n=24)
+    m = thb.models.GPR(seed=0, X=X, Y=Y, q_shape="fullrank", device="cpu")
+    m.q.analytic_kl = True
+    opt = ShardedOptimizer(m, "ELBO_gaussian", mesh=make_mesh())
+    opt.compile(optimizers.natural_gradient(m, gamma=0.01, rest=thb.adam(0.02)))
+    opt.optimize(maxiter=TWIN_STEPS)
+    return {"hist": opt.history[-1], "params": params_of(m)}
+
+
+def svgp(inp, rank, world):
+    """tests/test_parallel.py::test_sharded_svgp at n = 128, m = 8,
+    minibatch 16 (8 rows a rank), 20 steps, this rank's rows injected and
+    the noise drawn."""
+    thb.set_seed(0)
+    m = thb.models.SVGPRegression(seed=0, X=inp["svgp_X"], Y=inp["svgp_Y"], num_inducing=8,
+                                  device="cpu")
+    opt = ShardedOptimizer(m, "ELBO", mesh=make_mesh()).compile(learning_rate=0.01)
+    pos = inp["svgp_pos"][rank]
+    opt.row_source = lambda s: pos[s]
+    opt.optimize(maxiter=TWIN_STEPS, minibatch_size=world * pos.shape[1])
+    local_n = len(m._index._train_index) // world
+    return {"hist": opt.history[-1], "params": params_of(m),
+            "rows": m._index._train_index[rank * local_n + pos[:TWIN_STEPS]]}
+
+
 CASES = (mesh_sizes, gpr_fullbatch, amortized, amortized_noise_drawn, amortized_drawn, fleet,
-         fleet_drawn, samplers, streaming)
+         fleet_drawn, samplers, streaming, sparse_evidence, evidence_collectives, nan_guard,
+         save_restore, natgrad_gpr, svgp)
 
 
 def main(rank, world, directory):
