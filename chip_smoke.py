@@ -23,9 +23,9 @@ Run from the root of a checkout. Phases, each of which fails the run:
    the fleet's objective on the card against the CPU's;
 5. Laplace path: trains 16 robust GPRs on their Laplace evidence
    (log_marginal_laplace_student, benchmarks/laplace_bench.py's data,
-   n = 40, Adam 0.02) for 500 steps in chunks of 200, counting K1, K2
+   n = 40, Adam 0.02) for 250 steps in chunks of 200, counting K1, K2
    and K3 launches, and 16 GPCs (log_marginal_laplace, n = 60, Adam 0.05)
-   for 200 steps; each fit's grad_norm must end below 1. Then, for both
+   for 100 steps; each fit's grad_norm must end below 1. Then, for both
    fleets, 20 steps with the kernels against 20 with use_kernels off and
    the evidence on the card against the CPU's; and the Laplace fleet's
    steps/s with the kernels on and off;
@@ -45,11 +45,11 @@ Run from the root of a checkout. Phases, each of which fails the run:
 
 10. amortized path (BASELINE config 3's width): AmortizedRegression
    (d_z = 4, hidden = 64) on 1e6 synthetic rows kept on the card, Adam
-   0.003, minibatches of 1,024: 1,000 steps with diagonal locals, 500 with
+   0.003, minibatches of 1,024: 500 steps with diagonal locals, 300 with
    fullrank_packed ones; the ELBO card vs CPU at the same weights, rows
    and noise; a traced window each;
 11. SVGP path (benchmarks/svgp_bench.py's width: n = 1e6, m = 128,
-   minibatch 1,024, block mode): 250 steps each of the MC ELBO with Adam,
+   minibatch 1,024, block mode): 150 steps each of the MC ELBO with Adam,
    the analytic ELBO with natural_gradient(1.0) and the classification
    quadrature ELBO with natural_gradient(0.1), K1 and K2 launches a step
    counted; for the natural-gradient pairings 20 steps with the kernels
@@ -59,14 +59,14 @@ Run from the root of a checkout. Phases, each of which fails the run:
    natural_gradient(0.2) (n = 40, the Laplace fleet's data), 200 steps,
    launches counted, 20 steps kernels on vs off;
 13. EP fleets: 16 robust GPRs on log_marginal_ep_student (n = 40, Adam
-   0.02, 60 steps) and 16 GPCs on log_marginal_ep (n = 60, Adam 0.05,
-   60 steps): K1 and K2 launches and host reads a step, ep_delta, 20
+   0.02, 40 steps) and 16 GPCs on log_marginal_ep (n = 60, Adam 0.05,
+   40 steps): K1 and K2 launches and host reads a step, ep_delta, 20
    steps kernels on vs off, card vs CPU evidence and gradient, steps/s
    with the kernels on and off;
 14. sparse evidence at n = 1e5, m = 128, full batch
-   (benchmarks/families_bench.py's rows): SparseGPC Laplace (100 steps)
-   and EP (50), SparseGPRobust Laplace (200, 4% gross outliers) and
-   unrolled EP (15), SparseGPC with train_z (50); card vs CPU at the
+   (benchmarks/families_bench.py's rows): SparseGPC Laplace (80 steps)
+   and EP (30), SparseGPRobust Laplace (100, 4% gross outliers) and
+   unrolled EP (8), SparseGPC with train_z (30); card vs CPU at the
    initial weights, the JAX tests' accuracy gates, steps/s, host reads a
    step, a traced window, peak memory;
 15. sparse fleet: 16 SparseGPCs at n = 96, m = 24 (Laplace, 100 steps),
@@ -74,7 +74,7 @@ Run from the root of a checkout. Phases, each of which fails the run:
 16. resume: save_state after 50 steps of phase 14's SparseGPC Laplace run,
    restore_state into a fresh optimizer, 20 steps each way;
 17. multiclass (benchmarks/multiclass_scale_bench.py): SparseGPMulticlass at
-   n = 1e5, m = 128, K = 3, full batch, Adam 0.05, 200 steps; the evidence
+   n = 1e5, m = 128, K = 3, full batch, Adam 0.05, 100 steps; the evidence
    and gradient card vs CPU at the initial weights (each gradient leaf
    held to the card's float64), the CholQR2 logdet and
    an H-solve against float64, the grid probabilities against the
@@ -83,7 +83,7 @@ Run from the root of a checkout. Phases, each of which fails the run:
    and 1e-6 (measured, not gated);
 18. samplers (BASELINE config 4, benchmarks/ess_bench.py): HMC, ChEES and
    NUTS on BNN(hidden=16), 49 dimensions, 256 chains, 200 + 200
-   iterations (NUTS 100 + 100): bulk ESS/s, accept, leapfrogs, device operations and host
+   iterations (ChEES 100 + 100, NUTS 30 + 30): bulk ESS/s, accept, leapfrogs, device operations and host
    reads an iteration; each sampler on a 50-dim correlated Gaussian, its
    means and covariance held to the JAX tests' limits and to 6 of this
    run's Monte Carlo standard errors;
@@ -146,7 +146,31 @@ Run from the root of a checkout. Phases, each of which fails the run:
    (EP's ep_delta under 1e-2), the row sums' all-reduces and bytes a step
    and steps/s against one process; henbun_tpu_torch.entry's
    dryrun_multichip(1) over NCCL and dryrun_multichip(2) over gloo on the
-   card. No step count was cut for these (about 60 s more).
+   card. No step count was cut for these (about 60 s more); the two ranks
+   and the dry runs start with the phase and run beside its in-process
+   parts.
+28. examples: in a process of its own (`chip_smoke.py --examples <dir>`),
+   started before phase 21 and running beside phases 21-27, its output
+   printed after phase 27: the main() of each example twin
+   (henbun_tpu_torch/examples, every one but serving_export, which phase
+   26 covers) on the card at the JAX example's widths (n, m, models, chains, particles, minibatch and
+   grid), its stdout captured: its seconds, its K1, K2 and K3 launches
+   and its printed lines. Every printed number finite; the fleet,
+   svgp_natgrad and bayes_hypers_sparse twins launch K1 and K2; the
+   deterministic lines (gaussian_process's quadrature + natural-gradient
+   ELBO, Laplace evidence and Laplace RMSE, linear_models' MAP line,
+   gp_classification's exact Laplace and EP evidence) within 1e-3 of the
+   JAX example's reading on a CPU at the same arguments; smc_tomography's
+   final beta and posterior mean within phase 20's limits. Step counts
+   cut (the example's default in brackets): gaussian_process 200
+   (20,000), fleet 100 (4,000), amortized_svi 100 (5,000), svgp_natgrad
+   200 (2,000), svgp_likelihoods 50 (6,000), linear_models MAP 300
+   (3,000) and VI 500 (50,000), gp_classification 20 (500), expert_gpr
+   150 ELBO_single (3,000) and one round of 100 (10 x 1,000; phase 21
+   keeps the full recipe), heteroscedastic 50 (4,000), multioutput 50
+   (20,000), deep_gp 50 (6,000), gplvm 150 (6,000), hmc_bnn 50 + 50
+   (500 + 500), bayes_hypers_sparse 20 + 20 (300 + 300); smc_tomography
+   at its defaults. The steps an example fixes itself stay (EXAMPLE_ARGV).
 Each of phases 21-24 is finite and rising and reports steps/s, host
 reads a step and a traced window's busy share; phase 21's main phase
 runs 1,000 steps where the example runs 10 x 1,000 (cut for time).
@@ -158,7 +182,18 @@ SVGP pairings 250 steps (500), the EP GPR fleet 100 (200), and the sparse
 runs SparseGPC Laplace 100 (200), EP 50 (100), unrolled robust EP 15
 (30), train_z 50 (100). Cut again to keep it near 700 s once phases 21-25
 came: the EP fleets 60 steps each (GPR 100, GPC 100) and NUTS on the BNN
-100 + 100 iterations (200 + 200).
+100 + 100 iterations (200 + 200). Cut again for phase 28: NUTS on the
+BNN 50 + 50 (100 + 100) and the Bayesian-hyperparameter ChEES run 50 + 50
+(100 + 100; phase 28's bayes_hypers_sparse twin samples the same
+posterior). Cut again, with phase 28 moved beside phases 21-27, to keep
+the run near 600 s on a host slower than the one it was timed on (1,006
+s before): the Laplace fleet 250 steps (500), the GPC fleet 100 (200),
+the Laplace fleet's rate runs 20 steps each (100), the amortized path 500
+diagonal steps (1,000) and 300 packed (500), the SVGP pairings 150 (250),
+the EP fleets 40 each (60), the sparse runs SparseGPC Laplace 80 (100),
+EP 30 (50), SparseGPRobust Laplace 100 (200), unrolled robust EP 8 (15),
+train_z 30 (50), the multiclass path 100 (200), ChEES on the BNN 100 +
+100 (200 + 200) and NUTS 30 + 30 (50 + 50).
 
 The kernel phase also checks K1 and K2 at the natural gradient's shapes
 (B = 1 and 3 at n = 128, B = 48 at n = 40; K2 as L X = I), at the
@@ -176,6 +211,7 @@ checkout of the repository.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -189,10 +225,10 @@ CHUNK = 200
 CHECK_STEPS = 20
 PROFILE_STEPS = 50
 SINGLE_STEPS = 300
-LAPLACE_STEPS = 500
+LAPLACE_STEPS = 250
 GPC_N = 60
-GPC_STEPS = 200
-RATE_STEPS = 100           # Laplace fleet steps/s, kernels on and off
+GPC_STEPS = 100
+RATE_STEPS = 20            # Laplace fleet steps/s, kernels on and off
 LAPLACE_PROFILE_STEPS = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
@@ -222,14 +258,14 @@ BACKWARD_STEPS = 10        # evidence steps timed per turn, Murray vs native
 NATGRAD_SHAPES = ((1, 128), (3, 128), (3 * FLEET, N))
 # amortized SVI at BASELINE config 3's width (examples/amortized_svi.py)
 AMORT_N = 1_000_000
-AMORT_STEPS = {"diagonal": 1000, "fullrank_packed": 500}
+AMORT_STEPS = {"diagonal": 500, "fullrank_packed": 300}
 MINIBATCH = 1024
 SLICE_CHUNK = 500          # steps between host syncs on the new paths
 SLICE_PROFILE_STEPS = 20
 # SVGP at benchmarks/svgp_bench.py's width
 SVGP_N = 1_000_000
 SVGP_M = 128
-SVGP_STEPS = 250
+SVGP_STEPS = 150
 NATGRAD_FLEET_STEPS = 200
 # a float32 path's deviation from float64, kernels against library, at
 # most this factor (measured at m = 128: objective 1.44x and 1.56x the
@@ -252,8 +288,8 @@ STUDENT_EP_F32_TOL = 5e-4
 SPARSE_LAPLACE_F32_TOL = 1e-2
 SPARSE_EP_F32_TOL = 1e-1
 # EP fleets (benchmarks/laplace_bench.py --engine ep, tests/test_ep.py:208)
-EP_GPR_STEPS = 60
-EP_GPC_STEPS = 60
+EP_GPR_STEPS = 40
+EP_GPC_STEPS = 40
 EP_PROFILE_STEPS = 2       # a traced EP fleet step holds 3,000-7,000 device operations
 READ_STEPS = 3             # steps counted under torch.cuda's sync debug mode
 # sparse evidence at families_bench.py's width
@@ -1489,7 +1525,7 @@ def amortized_phase(torch, hb):
     """Amortized SVI at BASELINE config 3's width: AmortizedRegression
     (d_z = 4, hidden = 64) on make_synthetic_regression(n = 1e6, d_x = 8),
     the data whole on the card, Adam 0.003, minibatches of 1,024 rows;
-    1,000 steps with diagonal locals and 500 with fullrank_packed ones.
+    500 steps with diagonal locals and 300 with fullrank_packed ones.
     The ELBO must stay finite and its mean over the last 100 steps (per
     data point) exceed the first 100's; the objective on the card must
     match the CPU's (rtol 1e-4) at the same weights, rows and noise. No
@@ -2039,11 +2075,11 @@ def sparse_data(n, seed=0):
 
 # name -> (family, objective, steps, model keywords)
 SPARSE_RUNS = {
-    "SparseGPC laplace": ("gpc", "log_marginal_laplace", 100, {}),
-    "SparseGPC ep": ("gpc", "log_marginal_ep", 50, {}),
-    "SparseGPRobust laplace": ("robust", "log_marginal_laplace", 200, {}),
-    "SparseGPRobust ep (unrolled)": ("robust", "log_marginal_ep", 15, {}),
-    "SparseGPC laplace train_z": ("gpc", "log_marginal_laplace", 50, {"train_z": True}),
+    "SparseGPC laplace": ("gpc", "log_marginal_laplace", 80, {}),
+    "SparseGPC ep": ("gpc", "log_marginal_ep", 30, {}),
+    "SparseGPRobust laplace": ("robust", "log_marginal_laplace", 100, {}),
+    "SparseGPRobust ep (unrolled)": ("robust", "log_marginal_ep", 8, {}),
+    "SparseGPC laplace train_z": ("gpc", "log_marginal_laplace", 30, {"train_z": True}),
 }
 
 
@@ -2229,12 +2265,12 @@ def resume_phase(torch, hb, resume):
 
 # ------------------------------- slice 8: the multiclass engine and the samplers
 MC_N, MC_M, MC_K = 100_000, 128, 3
-MC_STEPS = 200
+MC_STEPS = 100
 MC_PROFILE_STEPS = 3
 MC_GRID_GATE = 0.02        # mean |p - p_true| on the grid (test_multiclass_oracle.py)
 MC_KV_STRESS = 100.0       # n k_var = 1e7: the CholQR2 first-pass shift question
 SAMPLER_CHAINS = 256
-SAMPLER_ITERS = {"hmc": (200, 200), "chees": (200, 200), "nuts": (100, 100)}
+SAMPLER_ITERS = {"hmc": (200, 200), "chees": (100, 100), "nuts": (30, 30)}
 TRACE_ITERS = 2            # warmup and sampling iterations of a traced sampler call
 GAUSS_DIM = 50
 GAUSS_ITERS = (200, 200)
@@ -2243,7 +2279,7 @@ GAUSS_ITERS = (200, 200)
 GAUSS_GATES = {"hmc": (0.15, 0.35), "chees": (0.12, 0.3), "nuts": (0.15, 0.35)}
 GAUSS_Z = 6.0              # and within this many of the run's Monte Carlo standard errors
 BAYES_N, BAYES_M, BAYES_CHAINS = 20_000, 32, 8
-BAYES_ITERS = (100, 100)   # the reference ran 300 + 300; cut to keep the phase under 90 s
+BAYES_ITERS = (50, 50)     # the reference ran 300 + 300; cut (100 + 100 before phase 28)
 SMC_GRID, SMC_PARTICLES, SMC_NOISE = 8, 8192, 0.1
 SMC_MEAN_GATE = 0.005
 # the card's float32 gradient against its float64 one, a limit for each
@@ -3135,6 +3171,51 @@ RANKS_ROWS = 256                 # each rank's rows a step: 512 over the two
 SHARD_EVIDENCE = ("log_marginal_laplace", "log_marginal_ep")
 SHARD_EVIDENCE_STEPS = 10
 
+# phase 28: each example twin (henbun_tpu_torch/examples) at the JAX
+# example's widths, only the step counts cut (the example's default in the
+# comment), in the order the port took them up. Steps that an example fixes
+# are not cut: gaussian_process's 800 natural-gradient and 600 Laplace
+# steps (most of its time: a single model's Laplace steps run the generic
+# Newton loop), bayes_hypers_sparse's 300 ML-II steps, the
+# sparse Laplace fits' 60 in svgp_likelihoods, MultiOutputSVGP's 1,000 and
+# amortized_svi's 500 warm-up steps
+EXAMPLE_ARGV = (
+    ("gaussian_process", ["--iters", "200"]),           # 20,000
+    ("fleet", ["--iters", "100"]),                      # 4,000
+    ("amortized_svi", ["--iters", "100"]),              # 5,000
+    ("svgp_natgrad", ["--iters", "200"]),               # 2,000
+    ("svgp_likelihoods", ["--iters", "50"]),            # 6,000
+    ("linear_models", ["--map-iters", "300", "--vi-iters", "500"]),  # 3,000, 50,000
+    ("gp_classification", ["--iters", "20"]),           # 500
+    ("expert_gpr", ["--init-iters", "150", "--rounds", "1", "--iters", "100"]),  # 3,000; 10 x 1,000
+    ("heteroscedastic", ["--iters", "50"]),             # 4,000
+    ("multioutput", ["--iters", "50"]),                 # 20,000
+    ("deep_gp", ["--iters", "50"]),                     # 6,000
+    ("gplvm", ["--iters", "150"]),                      # 6,000
+    ("hmc_bnn", ["--samples", "50", "--warmup", "50"]),  # 500 + 500
+    ("smc_tomography", []),
+    ("bayes_hypers_sparse", ["--samples", "20"]),       # 300 + 300
+)
+# twins whose path must launch these kernels
+EXAMPLE_KERNELS = {"fleet": ("K1", "K2"), "svgp_natgrad": ("K1", "K2"),
+                   "bayes_hypers_sparse": ("K1", "K2")}
+# deterministic lines: the JAX example's reading on a CPU at the same argv
+# (python examples/<name>.py <argv>, JAX_PLATFORMS=cpu), the first numbers
+# after each label, held at EXAMPLE_RTOL. gaussian_process's three lines
+# do not depend on --iters below 16,000 (800 natgrad and 600 Laplace steps)
+EXAMPLE_READINGS = {
+    "gaussian_process": {"robust ELBO (quadrature+natgrad):": (-47.85931396484375,),
+                         "robust Laplace evidence:": (-47.97492218017578,),
+                         "robust Laplace posterior-mean RMSE vs sin(x):": (0.10932200402021408,)},
+    "linear_models": {"MAP:": (1.008, 1.951)},
+    "gp_classification": {"Laplace evidence:": (-63.73707580566406,),
+                          "EP evidence:": (-63.545,)},
+}
+EXAMPLE_RTOL = 1e-3
+EXAMPLES_TIMEOUT = 300        # seconds phase 28's process may run past phase 27
+# a printed number: signed decimal or exponent form, or nan / inf
+EXAMPLE_NUMBER = r"[-+]?(?:(?<![A-Za-z])(?i:nan|inf)(?![A-Za-z])|(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?)"
+
 # the phase-26 child: a fresh process that imports torch and the serving
 # module only, loads the saved artifact and serves each size on both
 # programs, counting K1 and K2 launches per request
@@ -3369,11 +3450,55 @@ def parallel_phase(torch, hb):
     with the noise drawn, against the one-process run drawing its own.
     Then the row-sharded full-batch evidence at phase 14's width over
     one process, one NCCL rank and the two gloo ranks
-    (sharded_evidence_checks), and entry.dryrun_multichip(1) and (2)."""
+    (sharded_evidence_checks), and entry.dryrun_multichip(1) and (2).
+    The two ranks and the dry runs (in a thread) start with the phase and
+    run beside its in-process parts."""
+    import atexit
     import tempfile
+    import threading
 
     import torch.distributed as dist
-    from henbun_tpu_torch import parallel
+    from henbun_tpu_torch import entry, parallel
+
+    # the spawned processes (the two gloo ranks, then the dry runs) run
+    # while this process runs its own parts
+    here = os.path.dirname(os.path.abspath(__file__))
+    rng = np.random.default_rng(27)
+    local_n = (AMORT_N - AMORT_N // 10) // RANKS
+    pos = rng.integers(0, local_n, (RANKS, RANKS_STEPS, RANKS_ROWS))
+    u = rng.standard_normal((RANKS_STEPS, RANKS * RANKS_ROWS, 4)).astype(np.float32)
+    d = tempfile.TemporaryDirectory()
+    np.savez(os.path.join(d.name, "inputs.npz"), pos=pos, noise=u)
+    t_spawn = time.perf_counter()
+    procs = []
+    for r in range(RANKS):
+        with open(os.path.join(d.name, "rank%d.log" % r), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank", str(r), str(RANKS), d.name],
+                env=dict(os.environ, PYTHONPATH=here), stdout=log, stderr=subprocess.STDOUT))
+
+    def stop_ranks():
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    atexit.register(stop_ranks)
+    # the port's twin of __graft_entry__.dryrun_multichip: one NCCL rank,
+    # then two gloo ranks sharing the card
+    dry = {}
+
+    def dry_runs():
+        for n in (1, 2):
+            t1 = time.perf_counter()
+            try:
+                dry[n] = (entry.dryrun_multichip(n), time.perf_counter() - t1)
+            except Exception as e:  # reported after the join
+                dry[n] = e
+                return
+
+    dry_thread = threading.Thread(target=dry_runs, daemon=True)
+    dry_thread.start()
 
     mesh = parallel.make_mesh()
     check(dist.get_backend() == "nccl" and tuple(mesh.shape) == (1, 1),
@@ -3434,30 +3559,20 @@ def parallel_phase(torch, hb):
         print("parallel: " + text)
     added = time.perf_counter() - t_added
 
-    here = os.path.dirname(os.path.abspath(__file__))
-    rng = np.random.default_rng(27)
-    local_n = (AMORT_N - AMORT_N // 10) // RANKS
-    pos = rng.integers(0, local_n, (RANKS, RANKS_STEPS, RANKS_ROWS))
-    u = rng.standard_normal((RANKS_STEPS, RANKS * RANKS_ROWS, 4)).astype(np.float32)
-    with tempfile.TemporaryDirectory() as d:
-        np.savez(os.path.join(d, "inputs.npz"), pos=pos, noise=u)
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r),
-                                   str(RANKS), d], env=dict(os.environ, PYTHONPATH=here),
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                 for r in range(RANKS)]
-        try:
-            logs = [p.communicate(timeout=600)[0] for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        spawn_s = time.perf_counter() - t0
-        for r, (p, log) in enumerate(zip(procs, logs)):
-            check(p.returncode == 0, "rank %d failed:\n%s" % (r, log[-4000:]))
-        out = [torch.load(os.path.join(d, "rank%d.pt" % r), weights_only=False)
-               for r in range(RANKS)]
+    try:
+        for p in procs:
+            p.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        stop_ranks()
+    spawn_s = time.perf_counter() - t_spawn
+    for r, p in enumerate(procs):
+        with open(os.path.join(d.name, "rank%d.log" % r)) as f:
+            check(p.returncode == 0, "rank %d failed:\n%s" % (r, f.read()[-4000:]))
+    out = [torch.load(os.path.join(d.name, "rank%d.pt" % r), weights_only=False)
+           for r in range(RANKS)]
+    d.cleanup()
     union = np.concatenate([o["rows"] for o in out], axis=1)
     noise_card = torch.tensor(u, device="cuda")
     worst, one_s = {}, None
@@ -3504,26 +3619,151 @@ def parallel_phase(torch, hb):
         for text in sharded_evidence_checks(torch, hb, "sharded evidence 2 ranks gloo, rank %d"
                                             % r, o["evidence"], one):
             print("parallel: " + text)
+    added += time.perf_counter() - t0 + max(o["evidence_s"] for o in out)
 
-    # the port's twin of __graft_entry__.dryrun_multichip: one NCCL rank,
-    # then two gloo ranks sharing the card
-    from henbun_tpu_torch import entry
-
-    dry = {}
+    dry_thread.join()
     for n, backend in ((1, "nccl"), (2, "gloo")):
-        t1 = time.perf_counter()
-        res = entry.dryrun_multichip(n)
+        if isinstance(dry.get(n), Exception):
+            fail("dryrun_multichip(%d): %s" % (n, dry[n]))
+        check(n in dry, "dryrun_multichip(%d) did not run" % n)
+        res, seconds = dry[n]
         for o in res:
             check(o["backend"] == backend and o["device"].startswith("cuda"),
                   "dryrun_multichip(%d): rank ran on %s over %s" % (n, o["device"], o["backend"]))
-        dry[n] = time.perf_counter() - t1
-        print("parallel: dryrun_multichip(%d) over %s on the card in %.1f s: %s"
-              % (n, backend, dry[n], json.dumps({k: v for k, v in res[0].items()
-                                                 if k not in ("backend", "device")})))
-    added += time.perf_counter() - t0 + max(o["evidence_s"] for o in out)
-    print("parallel: the row-sharded evidence and the dry runs took %.1f s of this phase"
-          % added)
-    return {"fleet": fleets, "amortized": amort, "evidence": one, "dryrun_s": dry}
+        print("parallel: dryrun_multichip(%d) over %s on the card in %.1f s (beside the phase's "
+              "other work): %s"
+              % (n, backend, seconds, json.dumps({k: v for k, v in res[0].items()
+                                                  if k not in ("backend", "device")})))
+    print("parallel: the row-sharded evidence checks took %.1f s of this phase, the dry runs "
+          "%.1f s beside it" % (added, sum(v[1] for v in dry.values())))
+    return {"fleet": fleets, "amortized": amort, "evidence": one,
+            "dryrun_s": {n: v[1] for n, v in dry.items()}}
+
+
+def example_numbers(line):
+    return [float(x) for x in re.findall(EXAMPLE_NUMBER, line)]
+
+
+def examples_phase(torch, hb):
+    """Phase 28: each example twin's main() on the card at EXAMPLE_ARGV,
+    its stdout captured; its seconds, its K1-K3 launches and its printed
+    lines. Every printed number finite; the twins of EXAMPLE_KERNELS launch
+    their kernels; each deterministic line within EXAMPLE_RTOL of the JAX
+    example's CPU reading; the SMC twin's final beta and posterior mean
+    within phase 20's limits."""
+    import contextlib
+    import importlib
+    import io
+
+    counters = kernel_counters()
+    out = {}
+    for name, argv in EXAMPLE_ARGV:
+        mod = importlib.import_module("henbun_tpu_torch.examples." + name)
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main(argv + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+        print("examples: %s %s seconds=%.3f launches %s"
+              % (name, " ".join(argv) or "(defaults)", seconds,
+                 " ".join("%s=%d" % kv for kv in sorted(launches.items()))))
+        for ln in lines:
+            print("  | " + ln)
+        for ln in lines:
+            check(all(np.isfinite(example_numbers(ln))), "examples: %s printed %r" % (name, ln))
+        for k in EXAMPLE_KERNELS.get(name, ()):
+            check(launches[k] > 0, "examples: %s launched no %s" % (name, k))
+        for label, want in EXAMPLE_READINGS.get(name, {}).items():
+            found = [example_numbers(ln[len(label):])[:len(want)] for ln in lines
+                     if ln.startswith(label)]
+            check(len(found) == 1, "examples: %s printed %d lines %r" % (name, len(found), label))
+            rel = max(abs(g - w) / abs(w) for g, w in zip(found[0], want))
+            check(rel <= EXAMPLE_RTOL, "examples: %s %r %s, the JAX example's CPU reading %s "
+                  "(rel %.3g, rtol %g)" % (name, label, found[0], want, rel, EXAMPLE_RTOL))
+            print("  %s %s vs the JAX example's CPU reading %s: rel %.3g"
+                  % (label, " ".join("%.9g" % g for g in found[0]),
+                     " ".join("%.9g" % w for w in want), rel))
+        if name == "smc_tomography":
+            text = "\n".join(lines)
+            beta = float(re.search(r"final beta: (\S+)", text).group(1))
+            err = float(re.search(r"posterior-mean error vs analytic: (\S+)", text).group(1))
+            check(beta > 1.0 - 1e-5, "examples: smc final beta %g" % beta)
+            check(err < SMC_MEAN_GATE, "examples: smc posterior mean abs err %g, gate %g"
+                  % (err, SMC_MEAN_GATE))
+        out[name] = {"seconds": seconds, "launches": launches}
+    print("examples: %d twins in %.1f s; K1/K2/K3 launches %s"
+          % (len(out), sum(v["seconds"] for v in out.values()),
+             ", ".join("%s=%d/%d/%d" % (k, v["launches"]["K1"], v["launches"]["K2"],
+                                         v["launches"]["K3"]) for k, v in out.items())))
+    return out
+
+
+def start_examples():
+    """Start phase 28 in a process of its own, `chip_smoke.py --examples
+    <dir>`, its output to <dir>/log and its result to <dir>/examples.json:
+    it runs beside phases 21-27, whose host rates it shares the cores
+    with. It is killed if this process exits first."""
+    import atexit
+    import tempfile
+
+    d = tempfile.TemporaryDirectory(prefix="chip_smoke_examples_")
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(d.name, "log"), "w") as log:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--examples", d.name],
+                                env=dict(os.environ, PYTHONPATH=here), stdout=log,
+                                stderr=subprocess.STDOUT)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc, d, stop
+
+
+def join_examples(proc, d, stop):
+    """Wait for phase 28's process (EXAMPLES_TIMEOUT), print its output,
+    fail if it failed; returns its result."""
+    t0 = time.perf_counter()
+    try:
+        proc.wait(timeout=EXAMPLES_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        stop()
+    waited = time.perf_counter() - t0
+    with open(os.path.join(d.name, "log")) as f:
+        text = f.read()
+    sys.stdout.write(text)
+    check(proc.returncode == 0, "examples process failed (exit %s):\n%s"
+          % (proc.returncode, text[-3000:]))
+    with open(os.path.join(d.name, "examples.json")) as f:
+        out = json.load(f)
+    d.cleanup()
+    print("examples: its process ended %.1f s after phase 27" % waited)
+    return out
+
+
+def examples_main(directory):
+    """Phase 28 alone, in the process start_examples starts."""
+    import torch
+
+    check(torch.cuda.is_available(), "examples: torch finds no CUDA device")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import henbun_tpu_torch as hb
+    from henbun_tpu_torch.ops import _build
+
+    _build.build_all()
+    t0 = time.perf_counter()
+    out = examples_phase(torch, hb)
+    print("examples phase: %.1f s in its own process" % (time.perf_counter() - t0))
+    with open(os.path.join(directory, "examples.json"), "w") as f:
+        json.dump(out, f)
 
 
 def rank_main(rank, world, directory):
@@ -3582,6 +3822,7 @@ def all_counters():
 
 
 def main():
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -3612,60 +3853,45 @@ def main():
             if "registers" in line or "smem" in line or "spill" in line:
                 print("  %s: %s" % (name, line.strip()))
 
-    errs, times = kernel_phase(torch, hb)
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(torch, hb, *args)
+        print("%s phase: %.1f s" % (name, time.perf_counter() - t0), flush=True)
+        return out
+
+    errs, times = timed("kernel", kernel_phase)
     # K4-K6 have no production caller: these are the kernel phase's own calls
     check_calls = {k: c.launches for k, c in all_counters().items() if k[:2] in ("K4", "K5", "K6")}
     print("kernel phase launches (checks and timing) %s"
           % " ".join("%s=%d" % kv for kv in sorted(check_calls.items())))
-    gpr_launches, steps_per_s = path_phase(torch, hb)
-    agreement_phase(torch, hb)
-    laplace = laplace_phase(torch, hb)
-    laplace_agreement_phase(torch, hb)
-    profile_phase(torch, hb)
-    profile_phase(torch, hb, "laplace", LAPLACE_PROFILE_STEPS)
-    single_phase(torch, hb)
-    t0 = time.perf_counter()
-    amortized = amortized_phase(torch, hb)
-    print("amortized phase: %.1f s" % (time.perf_counter() - t0))
-    t0 = time.perf_counter()
-    svgp = svgp_phase(torch, hb)
-    print("svgp phase: %.1f s" % (time.perf_counter() - t0))
-    t0 = time.perf_counter()
-    ng_fleet = natgrad_fleet_phase(torch, hb)
-    print("natgrad fleet phase: %.1f s" % (time.perf_counter() - t0))
-    t0 = time.perf_counter()
-    blocked = blocked_phase(torch, hb)
-    print("blocked phase: %.1f s" % (time.perf_counter() - t0))
-    t0 = time.perf_counter()
-    marginal = marginal_phase(torch, hb)
-    print("exact-gram phase: %.1f s" % (time.perf_counter() - t0))
-    t0 = time.perf_counter()
-    ep_fleets = ep_fleet_phase(torch, hb)
-    print("ep fleet phase: %.1f s" % (time.perf_counter() - t0))
-    t0 = time.perf_counter()
-    sparse = sparse_phase(torch, hb)
-    print("sparse evidence phase: %.1f s" % (time.perf_counter() - t0))
-    t0 = time.perf_counter()
-    sparse_fleet = sparse_fleet_phase(torch, hb)
-    print("sparse fleet phase: %.1f s" % (time.perf_counter() - t0))
-    t0 = time.perf_counter()
-    resume_phase(torch, hb, sparse["SparseGPC laplace"]["resume"])
-    print("resume phase: %.1f s" % (time.perf_counter() - t0))
-    later = {}
-    for name, phase in (("multiclass", multiclass_phase), ("samplers", sampler_phase),
-                        ("bayes", bayes_phase), ("smc", smc_phase)):
-        t0 = time.perf_counter()
-        later[name] = phase(torch, hb)
-        print("%s phase: %.1f s" % (name, time.perf_counter() - t0))
-    families = {}
-    for name, phase in (("expert", expert_phase), ("hetero", hetero_phase),
-                        ("multioutput", multioutput_phase), ("deep", deep_phase),
-                        ("streaming", lambda torch, hb: streaming_phase(
-                            torch, hb, amortized["diagonal"]["steps_per_s"])),
-                        ("serving", serving_phase), ("parallel", parallel_phase)):
-        t0 = time.perf_counter()
-        families[name] = phase(torch, hb)
-        print("%s phase: %.1f s" % (name, time.perf_counter() - t0))
+    gpr_launches, steps_per_s = timed("path", path_phase)
+    timed("agreement", agreement_phase)
+    laplace = timed("laplace", laplace_phase)
+    timed("laplace agreement", laplace_agreement_phase)
+    timed("profile", profile_phase)
+    timed("laplace profile", profile_phase, "laplace", LAPLACE_PROFILE_STEPS)
+    timed("single", single_phase)
+    amortized = timed("amortized", amortized_phase)
+    svgp = timed("svgp", svgp_phase)
+    ng_fleet = timed("natgrad fleet", natgrad_fleet_phase)
+    blocked = timed("blocked", blocked_phase)
+    marginal = timed("exact-gram", marginal_phase)
+    ep_fleets = timed("ep fleet", ep_fleet_phase)
+    sparse = timed("sparse evidence", sparse_phase)
+    sparse_fleet = timed("sparse fleet", sparse_fleet_phase)
+    timed("resume", resume_phase, sparse["SparseGPC laplace"]["resume"])
+    later = {name: timed(name, phase) for name, phase in (
+        ("multiclass", multiclass_phase), ("samplers", sampler_phase),
+        ("bayes", bayes_phase), ("smc", smc_phase))}
+    # phase 28 runs in a process of its own beside phases 21-27
+    examples = start_examples()
+    families = {name: timed(name, phase, *args) for name, phase, args in (
+        ("expert", expert_phase, ()), ("hetero", hetero_phase, ()),
+        ("multioutput", multioutput_phase, ()), ("deep", deep_phase, ()),
+        ("streaming", streaming_phase, (amortized["diagonal"]["steps_per_s"],)),
+        ("serving", serving_phase, ()), ("parallel", parallel_phase, ()))}
+    families["examples"] = join_examples(*examples)
+    print("chip_smoke: phases 1-28 in %.1f s" % (time.perf_counter() - t_start), flush=True)
 
     # launches: the Laplace fleet's path run for K1-K3 (every one of them
     # runs on it; the GPR path's K1 and K2 counts are on its own line
@@ -3766,5 +3992,7 @@ def main():
 if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--rank":
         rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--examples":
+        examples_main(sys.argv[2])
     else:
         main()

@@ -76,20 +76,26 @@ def _ll_sum(loglik_fn):
 
 
 def _grad_and_curvature(loglik_fn, f):
-    """(d loglik / df, -d2 loglik / df^2), both [n, 1], in one
-    forward-over-reverse pass: the likelihood factorizes over datapoints,
-    so its Hessian is diagonal and the Hessian-times-ones product of the
-    gradient is that diagonal.
+    """(d loglik / df, -d2 loglik / df^2), both [n, 1]: the likelihood
+    factorizes over datapoints, so its Hessian is diagonal and the
+    Hessian-times-ones product of the gradient is that diagonal.
 
-    Under ``torch.export`` (a served program, no gradient to carry) the
-    same two derivatives come from two reverse passes of autograd on a
-    detached f: torch.export cannot replay the functorch transforms."""
-    if torch.compiler.is_exporting():
+    Outside any functorch transform (a single model's Newton loop, IFT and
+    evidence; a prediction) the two come from two reverse passes of
+    autograd, each keeping its graph where a gradient is carried: far less
+    host time than a functorch pass, which dispatches every operation
+    through its transform layers. Under a transform
+    (a fleet's vmap, a sampler's batched gradient) they come from one
+    forward-over-reverse pass. Under ``torch.export`` (a served program,
+    no gradient to carry, and no functorch transform it can replay) the
+    reverse passes run on a detached f."""
+    if torch.compiler.is_exporting() or torch._C._functorch.maybe_current_level() is None:
+        keep = torch.is_grad_enabled() and not torch.compiler.is_exporting()
         with torch.enable_grad():
-            x = f.detach().requires_grad_(True)
+            x = f if keep and f.requires_grad else f.detach().requires_grad_(True)
             (g,) = torch.autograd.grad(torch.sum(loglik_fn(x)), x, create_graph=True)
-            (hv,) = torch.autograd.grad(torch.sum(g), x)
-        return g.detach(), -hv
+            (hv,) = torch.autograd.grad(torch.sum(g), x, create_graph=keep)
+        return (g, -hv) if keep else (g.detach(), -hv)
     g, hv = torch.func.jvp(
         torch.func.grad(_ll_sum(loglik_fn)), (f,), (torch.ones_like(f),)
     )

@@ -54,6 +54,7 @@ class GPR(Model):
         """
         from ..gp.gp import whitened_conditional
 
+        x_new = torch.as_tensor(x_new, dtype=self.X.dtype, device=self.X.device)
         u = self.q.mT  # [1, n] whitened sample
         out = whitened_conditional(self.kern, x_new, self.X, u, q_shape)
         return out.mT * torch.sqrt(self.k_var)

@@ -12,9 +12,11 @@ heteroscedastic fleet and the multi-output natural gradient on K1 and K2,
 streaming into a model on the card, K1 and K2 through their custom ops,
 a served multi-output predictor, a sharded fleet over a one-rank NCCL
 mesh, the port's dry run (``entry.dryrun_multichip``) on one NCCL rank,
-and the JAX package's accuracy gates
+the JAX package's accuracy gates
 of the heteroscedastic, multi-output, deep GP, GP-LVM and Expert GPR
-families at its tests' step counts and limits.
+families at its tests' step counts and limits, and the gaussian_process
+example twin at its default 20,000 steps against the JAX example's
+reading (the notebook's accuracy bar).
 
 Every test carries the ``cuda`` marker and skips where torch finds no
 CUDA device; the decision is made inside each test. This file imports
@@ -1085,3 +1087,38 @@ def test_expert_gpr_accuracy_gate_on_the_card():
     left = float(g_mean[X[:, 0] < -0.5].mean())
     right = float(g_mean[X[:, 0] > 0.5].mean())
     assert abs(right - left) > 0.5, (left, right)
+
+
+# examples/gaussian_process.py on a CPU at its defaults (20,000 Adam steps;
+# JAX package): the first GPR's hyperparameters
+GP_JAX_READING = {"lengthscale:": 0.89303714, "kernel var:": 0.2206784, "noise var:": 0.06612204}
+# their Monte Carlo spread: the standard deviation over 16 copies of that fit,
+# each drawing its own noise (python -m henbun_tpu_torch.utils.gp_spread on an
+# NVIDIA H100 80GB HBM3, 700 W)
+GP_MC_SD = {"lengthscale:": 0.0142294, "kernel var:": 0.00470313, "noise var:": 0.00543248}
+GP_Z = 4.0
+
+
+def test_gaussian_process_twin_at_its_defaults_on_the_card(capsys):
+    """The notebook's accuracy bar: the gaussian_process twin at its default
+    20,000 steps on the card (about 385 s). Its lengthscale, kernel variance
+    and noise variance within GP_Z standard deviations of the difference
+    of two runs (sqrt(2) GP_MC_SD) of the JAX example's CPU reading, and
+    the posterior-mean RMSE against sin(x) under 0.3."""
+    _card()
+    from henbun_tpu_torch.examples import gaussian_process
+
+    gaussian_process.main([])
+    out = capsys.readouterr().out
+
+    def reading(label):
+        lines = [ln for ln in out.splitlines() if label in ln]
+        assert len(lines) == 1, (label, out)
+        after = lines[0].split(label, 1)[1]
+        return float(after.split("]")[0].strip(" ["))
+
+    for label, want in GP_JAX_READING.items():
+        got = reading(label)
+        assert abs(got - want) <= GP_Z * np.sqrt(2.0) * GP_MC_SD[label], (label, got, want)
+    rmse = float(out.split("posterior-mean RMSE vs sin(x):")[1].split()[0])
+    assert rmse < 0.3, rmse
