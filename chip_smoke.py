@@ -144,11 +144,24 @@ Run from the root of a checkout. Phases, each of which fails the run:
    run's, each gradient leaf within 1e-4 of its largest entry or held to
    the card's float64 as in phase 14, 10 Adam steps finite and rising
    (EP's ep_delta under 1e-2), the row sums' all-reduces and bytes a step
-   and steps/s against one process; henbun_tpu_torch.entry's
+   and steps/s against one process; phase 17's SparseGPMulticlass
+   (n = 1e5, m = 128, K = 3) row-sharded the same three ways: the one
+   NCCL rank bit for bit the one-process run, the gloo ranks' objective
+   within 1e-5 relative, every gradient leaf held to the card's float64
+   at phase 17's limits (MC_F64_LIMITS), 5 Adam steps finite and rising,
+   the row all-reduces and bytes a step, steps/s against one process;
+   over the NCCL rank the SVGP families of tests/test_parallel.py at its
+   widths (SVGPMulticlass ELBO and SVGPCount ELBO_analytic at n = 2048,
+   HeteroSVGP and MultiOutputSVGP ELBO_analytic at n = 4096, m = 16,
+   minibatches 128/256), 20 steps on injected rows against the unsharded
+   Optimizer drawing the same noise (1e-6 relative), and the optimizer's
+   all-reduces a step (parallel.sharding.stats: one, parameters + 1
+   floats; no row or chain collective); henbun_tpu_torch.entry's
    dryrun_multichip(1) over NCCL and dryrun_multichip(2) over gloo on the
-   card. No step count was cut for these (about 60 s more); the two ranks
-   and the dry runs start with the phase and run beside its in-process
-   parts.
+   card. No step count was cut for these (about 60 s more for the
+   SparseGPC evidence; the multiclass and the families run 5 and 20 steps, not
+   phase 17's 100 or the JAX tests' 400-600); the two ranks and the dry
+   runs start with the phase and run beside its in-process parts.
 28. examples: in a process of its own (`chip_smoke.py --examples <dir>`),
    started before phase 21 and running beside phases 21-27, its output
    printed after phase 27: the main() of each example twin
@@ -3170,6 +3183,14 @@ RANKS_STEPS = 10
 RANKS_ROWS = 256                 # each rank's rows a step: 512 over the two
 SHARD_EVIDENCE = ("log_marginal_laplace", "log_marginal_ep")
 SHARD_EVIDENCE_STEPS = 10
+SHARD_MC_STEPS = 5               # phase 17's multiclass, row-sharded
+# the SVGP families of tests/test_parallel.py at its widths, over one NCCL
+# rank: name -> (objective, rows, minibatch)
+SHARD_FAMILIES = {"SVGPMulticlass": ("ELBO", 2048, 128),
+                  "SVGPCount": ("ELBO_analytic", 2048, 128),
+                  "HeteroSVGP": ("ELBO_analytic", 4096, 256),
+                  "MultiOutputSVGP": ("ELBO_analytic", 4096, 256)}
+SHARD_FAMILY_STEPS = 20
 
 # phase 28: each example twin (henbun_tpu_torch/examples) at the JAX
 # example's widths, only the step counts cut (the example's default in the
@@ -3402,6 +3423,123 @@ def evidence_float64(torch, hb, method):
         return value_and_grad(getattr(m, method)().compile(learning_rate=0.05))[1]
 
 
+def sharded_multiclass_run(torch, hb, X, y, make_opt):
+    """Phase 27's row-sharded multiclass (phase 17's SparseGPMulticlass at
+    n = 1e5, m = 128, K = 3) with make_opt(model) as the optimizer of its
+    log_marginal_laplace: the zero step at the initial weights, then
+    SHARD_MC_STEPS Adam(0.05) steps from them (history, seconds, the
+    trained weights)."""
+    got = evidence_step(torch, make_opt(multiclass_model(hb, X, y, "cuda")))
+    m = multiclass_model(hb, X, y, "cuda")
+    opt = make_opt(m).compile(hb.adam(0.05))
+    got["hist"], got["seconds"], _ = run_path(torch, hb, opt, SHARD_MC_STEPS)
+    got["params"] = {k: v.detach().cpu().numpy() for k, v in m.param_dict().items()}
+    return got
+
+
+def multiclass_float64(torch, hb, X, y):
+    """The one-process multiclass gradient on the card in float64 at the
+    initial weights (held()'s arbiter at MC_F64_LIMITS)."""
+    m = multiclass_model(hb, X, y, "cuda")
+    m.initialize()  # the staged initial values
+    params = {k: v.detach().cpu() for k, v in m.param_dict().items()}
+    cfg = hb.settings.get_settings()
+    cfg.dtypes.float_type = torch.float64
+    with hb.settings.temp_settings(cfg):
+        m = multiclass_model(hb, X, y, "cuda")
+        m.set_param_dict({k: v.double() for k, v in params.items()})
+        return value_and_grad(m.log_marginal_laplace().compile(learning_rate=0.05))[1]
+
+
+def sharded_multiclass_check(torch, label, got, one, g64, exact):
+    """A row-sharded multiclass run against the one-process card run: bit
+    for bit where `exact` (one rank), else the objective at rtol 1e-5;
+    every gradient leaf held to the card's float64 at MC_F64_LIMITS; the
+    Adam steps finite and rising. Returns the text to print."""
+    rel = abs(got["value"] - one["value"]) / abs(one["value"])
+    if exact:
+        same = (got["value"] == one["value"] and np.array_equal(got["hist"], one["hist"])
+                and all(np.array_equal(got["grads"][k], v) for k, v in one["grads"].items())
+                and all(np.array_equal(got["params"][k], v) for k, v in one["params"].items()))
+        check(same, "%s: not bit for bit the one-process run (objective rel %g)" % (label, rel))
+    check(rel <= 1e-5, "%s: objective %r against one process %r (rel %g)"
+          % (label, got["value"], one["value"], rel))
+    text = held(torch, label, (got["value"], got["grads"]), (one["value"], one["grads"]),
+                lambda: g64, f64_limits=MC_F64_LIMITS)
+    first, last = check_rises(got["hist"] / MC_N, label, 2)
+    return ("%s;%s rows %s; %d Adam steps per point %.5f -> %.5f; row all-reduces a step %d "
+            "(%d bytes); steps_per_s %.2f (one process %.2f)"
+            % (text, " bit for bit;" if exact else "", got["block"], SHARD_MC_STEPS, first, last,
+               got["stats"]["calls"], got["stats"]["bytes"], SHARD_MC_STEPS / got["seconds"],
+               SHARD_MC_STEPS / one["seconds"]))
+
+
+def family_model(hb, name):
+    """tests/test_parallel.py's SVGP family `name` at its widths (m = 16)
+    on the card."""
+    rng = np.random.default_rng(1)
+    X = np.sort(rng.uniform(0, 6, size=(2048, 1)).astype(np.float32), axis=0)
+    hb.set_seed(0)
+    if name == "SVGPMulticlass":
+        labels = (np.floor(X[:, 0]) % 3).astype(np.int32)[:, None]
+        return hb.models.SVGPMulticlass(seed=1, X=X, Y=labels, num_classes=3, num_inducing=16)
+    if name == "SVGPCount":
+        Yp = rng.poisson(np.exp(np.sin(X) + 1.0)).astype(np.float32)
+        return hb.models.SVGPCount(seed=1, X=X, Y=Yp, num_inducing=16)
+    if name == "HeteroSVGP":
+        Xh, Yh, _ = hb.models.make_hetero_dataset(n=4096, seed=0)
+        return hb.models.HeteroSVGP(seed=0, X=Xh, Y=Yh, num_inducing=16)
+    Xm, Ym, _ = hb.models.make_multioutput_dataset(n=4096, seed=0)
+    return hb.models.MultiOutputSVGP(seed=0, X=Xm, Y=Ym, Q=2, num_inducing=16)
+
+
+def sharded_families(torch, hb, mesh):
+    """The SVGP families of tests/test_parallel.py over a one-rank NCCL
+    mesh, SHARD_FAMILY_STEPS Adam(0.02) steps each on the same injected
+    rows against the unsharded Optimizer drawing the same noise from the
+    same seed (1e-6 relative, objectives and weights), and the steps'
+    collectives a step (the gradient and objective all-reduce; no row sum,
+    no chain collective). Returns the texts to print."""
+    from henbun_tpu_torch.parallel import ShardedOptimizer, chains, rows, sharding
+
+    texts = []
+    for name, (method, n, mb) in SHARD_FAMILIES.items():
+        runs = {}
+        for sharded in (False, True):
+            m = family_model(hb, name)
+            opt = ShardedOptimizer(m, method, mesh=mesh) if sharded else getattr(m, method)()
+            opt.compile(hb.adam(0.02))
+            train = np.asarray(m._index._train_index)
+            pos = np.random.default_rng(2727).integers(0, len(train), (SHARD_FAMILY_STEPS, mb))
+            # the shard of one rank is the whole permuted train split
+            opt.row_source = (lambda s: pos[s]) if sharded else (lambda s: train[pos[s]])
+            for mod in (sharding, rows, chains):
+                mod.reset_stats()
+            hist, seconds, _ = run_path(torch, hb, opt, SHARD_FAMILY_STEPS, minibatch_size=mb)
+            runs[sharded] = (hist, {k: v.detach().cpu().numpy() for k, v in m.param_dict().items()},
+                             dict(sharding.stats), rows.stats["calls"] + chains.stats["calls"],
+                             SHARD_FAMILY_STEPS / seconds,
+                             sum(t.numel() for t in opt._trainable.values()))
+        (h0, p0, _, _, rate0, _), (h1, p1, st, other, rate1, floats) = runs[False], runs[True]
+        check(np.isfinite(h1).all(), "sharded %s: objective not finite" % name)
+        rel = float(np.max(np.abs(h1 - h0) / np.abs(h0)))
+        prel = max(float(np.abs(p1[k] - v).max() / max(np.abs(v).max(), 1e-6))
+                   for k, v in p0.items())
+        check(rel <= 1e-6 and prel <= 1e-6, "sharded %s vs Optimizer: objective %g, weights %g "
+              "relative" % (name, rel, prel))
+        check(st == {"calls": SHARD_FAMILY_STEPS,
+                     "bytes": SHARD_FAMILY_STEPS * 4 * (floats + 1)} and other == 0,
+              "sharded %s: collectives %r (row or chain %d), want one all-reduce of %d floats a "
+              "step" % (name, st, other, floats + 1))
+        texts.append("%s.%s n=%d minibatch %d, %d steps: max rel vs Optimizer %.3g (weights %.3g); "
+                     "all-reduces a step %d (%d bytes, %d parameters + 1); steps_per_s sharded=%.1f "
+                     "unsharded=%.1f"
+                     % (name, method, n, mb, SHARD_FAMILY_STEPS, rel, prel,
+                        st["calls"] // SHARD_FAMILY_STEPS, st["bytes"] // SHARD_FAMILY_STEPS,
+                        floats, rate1, rate0))
+    return texts
+
+
 def sharded_evidence_checks(torch, hb, label, runs, one):
     """Each run of `runs` (sharded_evidence_runs' results on an optimizer)
     against the one-process card run `one`: the objective at rtol 1e-5,
@@ -3450,9 +3588,14 @@ def parallel_phase(torch, hb):
     with the noise drawn, against the one-process run drawing its own.
     Then the row-sharded full-batch evidence at phase 14's width over
     one process, one NCCL rank and the two gloo ranks
-    (sharded_evidence_checks), and entry.dryrun_multichip(1) and (2).
-    The two ranks and the dry runs (in a thread) start with the phase and
-    run beside its in-process parts."""
+    (sharded_evidence_checks), and phase 17's SparseGPMulticlass evidence
+    the same three ways (sharded_multiclass_check: one NCCL rank bit for
+    bit, the gloo ranks within 1e-5, every leaf held to the card's
+    float64); over the NCCL rank the SVGP families of
+    tests/test_parallel.py against the unsharded Optimizer
+    (sharded_families); and entry.dryrun_multichip(1) and (2). The two
+    ranks and the dry runs (in a thread) start with the phase and run
+    beside its in-process parts."""
     import atexit
     import tempfile
     import threading
@@ -3467,8 +3610,9 @@ def parallel_phase(torch, hb):
     local_n = (AMORT_N - AMORT_N // 10) // RANKS
     pos = rng.integers(0, local_n, (RANKS, RANKS_STEPS, RANKS_ROWS))
     u = rng.standard_normal((RANKS_STEPS, RANKS * RANKS_ROWS, 4)).astype(np.float32)
+    X_mc, y_mc = multiclass_data(MC_N)
     d = tempfile.TemporaryDirectory()
-    np.savez(os.path.join(d.name, "inputs.npz"), pos=pos, noise=u)
+    np.savez(os.path.join(d.name, "inputs.npz"), pos=pos, noise=u, mc_X=X_mc, mc_y=y_mc)
     t_spawn = time.perf_counter()
     procs = []
     for r in range(RANKS):
@@ -3500,7 +3644,7 @@ def parallel_phase(torch, hb):
     dry_thread = threading.Thread(target=dry_runs, daemon=True)
     dry_thread.start()
 
-    mesh = parallel.make_mesh()
+    mesh = parallel.make_mesh(device_type="cuda")
     check(dist.get_backend() == "nccl" and tuple(mesh.shape) == (1, 1),
           "world-1 mesh: backend %s shape %r" % (dist.get_backend(), tuple(mesh.shape)))
     g = torch.Generator(device="cuda")
@@ -3551,13 +3695,25 @@ def parallel_phase(torch, hb):
     # then one NCCL rank (a one-rank data axis takes every row)
     t_added = time.perf_counter()
     one = sharded_evidence_runs(torch, hb, lambda m, method: getattr(m, method)())
-    mesh = parallel.make_mesh()
+    one_mc = sharded_multiclass_run(torch, hb, X_mc, y_mc, lambda m: m.log_marginal_laplace())
+    mesh = parallel.make_mesh(device_type="cuda")
     nccl1 = sharded_evidence_runs(torch, hb, lambda m, method: parallel.ShardedOptimizer(
         m, method, mesh=mesh))
+    nccl1_mc = sharded_multiclass_run(torch, hb, X_mc, y_mc, lambda m: parallel.ShardedOptimizer(
+        m, "log_marginal_laplace", mesh=mesh))
+    t0 = time.perf_counter()
+    family_texts = sharded_families(torch, hb, mesh)
+    families_s = time.perf_counter() - t0
     dist.destroy_process_group()
     for text in sharded_evidence_checks(torch, hb, "sharded evidence world 1 nccl", nccl1, one):
         print("parallel: " + text)
-    added = time.perf_counter() - t_added
+    g64_mc = multiclass_float64(torch, hb, X_mc, y_mc)
+    print("parallel: " + sharded_multiclass_check(
+        torch, "sharded multiclass world 1 nccl", nccl1_mc, one_mc, g64_mc, exact=True))
+    for text in family_texts:
+        print("parallel: world 1 nccl; " + text)
+    print("parallel: the SVGP families took %.1f s" % families_s)
+    added = time.perf_counter() - t_added - families_s
 
     try:
         for p in procs:
@@ -3615,10 +3771,15 @@ def parallel_phase(torch, hb):
     for method, b in blocks.items():
         check(b == [(0, SPARSE_N // 2), (SPARSE_N // 2, SPARSE_N)],
               "2-rank %s: row blocks %r" % (method, b))
+    b = [o["multiclass"]["block"] for o in out]
+    check(b == [(0, MC_N // 2), (MC_N // 2, MC_N)], "2-rank multiclass: row blocks %r" % (b,))
     for r, o in enumerate(out):
         for text in sharded_evidence_checks(torch, hb, "sharded evidence 2 ranks gloo, rank %d"
                                             % r, o["evidence"], one):
             print("parallel: " + text)
+        print("parallel: " + sharded_multiclass_check(
+            torch, "sharded multiclass 2 ranks gloo, rank %d" % r, o["multiclass"], one_mc,
+            g64_mc, exact=False))
     added += time.perf_counter() - t0 + max(o["evidence_s"] for o in out)
 
     dry_thread.join()
@@ -3769,7 +3930,8 @@ def examples_main(directory):
 def rank_main(rank, world, directory):
     """One rank of phase 27's two-rank run: gloo over a FileStore in
     `directory`, CUDA tensors, this rank's rows injected, its noise
-    injected and then drawn; then the row-sharded evidence runs."""
+    injected and then drawn; then the row-sharded evidence runs and the
+    row-sharded multiclass."""
     import torch
     import torch.distributed as dist
 
@@ -3807,6 +3969,9 @@ def rank_main(rank, world, directory):
     t0 = time.perf_counter()
     out["evidence"] = sharded_evidence_runs(
         torch, hb, lambda model, method: parallel.ShardedOptimizer(model, method, mesh=mesh))
+    out["multiclass"] = sharded_multiclass_run(
+        torch, hb, inp["mc_X"], inp["mc_y"],
+        lambda model: parallel.ShardedOptimizer(model, "log_marginal_laplace", mesh=mesh))
     out["evidence_s"] = time.perf_counter() - t0
     torch.save(out, os.path.join(directory, "rank%d.pt" % rank))
     dist.destroy_process_group()

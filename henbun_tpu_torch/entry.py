@@ -10,7 +10,9 @@
   (their full-batch rows split over ``data``, ``parallel/rows.py``),
   chain-sharded ChEES and particle-sharded SMC.
 
-Both run on the card unless ``device="cpu"`` asks otherwise. From a shell
+Both run on the ``[cuda] device`` setting's device (the card) unless
+``device="cpu"`` asks otherwise; without a card they raise, as a Model
+does (``_settings.resolve_device``). From a shell
 (the ranks of a dry run are processes of this module)::
 
     python -m henbun_tpu_torch.entry [n] [--device cpu|cuda]
@@ -27,10 +29,7 @@ import time
 import numpy as np
 import torch
 
-
-def _device(device):
-    return torch.device(device if device is not None else
-                        ("cuda" if torch.cuda.is_available() else "cpu"))
+from ._settings import resolve_device
 
 
 def _tiny_model(device=None):
@@ -49,7 +48,7 @@ def entry(device=None):
     from henbun_tpu_torch import models
     from henbun_tpu_torch.core import context as _ctx
 
-    m = _tiny_model(_device(device))
+    m = _tiny_model(resolve_device(device))
     m.initialize()
     data = m._gather_data()
 
@@ -131,6 +130,7 @@ def _rank_main(rank, n, directory, device_type):
     ``<directory>/rank<r>.json``."""
     import torch.distributed as dist
 
+    resolve_device(device_type)  # a missing card raises, as for a Model
     if device_type == "cuda":
         nccl = n <= torch.cuda.device_count()
         device = torch.device("cuda", rank % torch.cuda.device_count())
@@ -169,8 +169,11 @@ def dryrun_multichip(n_devices, device=None, timeout=600):
     """Run the six sharded mechanisms on ``n_devices`` ranks, each a
     process of this module: gloo on the CPU; on cards, NCCL where there
     are as many cards as ranks, else gloo with the ranks sharing the
-    cards. Raises if a rank fails. Returns each rank's results."""
-    device = _device(device)
+    cards. `device` defaults to the ``[cuda] device`` setting's, which
+    raises here without a card; a device named by the caller is each
+    rank's to resolve, so a rank asked for a missing card fails. Raises if
+    a rank fails. Returns each rank's results."""
+    device = torch.device(device) if device is not None else resolve_device()
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))

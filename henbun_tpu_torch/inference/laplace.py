@@ -38,7 +38,13 @@ curvature). It never forms the Newton matrix H = I + blocks(A^T W A):
 every solve and the evidence's log-determinant go through the square-root
 factor of the curvature (``_softmax_G``) and its shifted CholeskyQR2
 factor (``_sqrt_gram_factor``), which keeps H's unit eigenvalue floor in
-float32 at n * k_var scales where a float32-built H has lost it.
+float32 at n * k_var scales where a float32-built H has lost it. Its
+contractions over the rows (the softmax log-likelihood and A^T G, the
+trial psis, the factor's two Grams, the IFT's A^T G) go through
+``row_sum`` too, and its two ``autograd.Function``s reduce their
+backward's cotangent as ``row_sum``'s backward would, so
+``SparseGPMulticlass.log_marginal_laplace`` is row-sharded like the
+scalar engine's evidence.
 """
 from __future__ import annotations
 
@@ -52,7 +58,7 @@ from .. import densities
 from .._settings import settings
 from ..ops import cuda_newton
 from ..ops.linalg import _to_front, eye, matmul_hp, safe_cholesky, tri_solve, tri_solve_T
-from ..parallel.rows import row_sum
+from ..parallel.rows import current_group, row_sum, sharded_rows
 
 
 class LaplaceResult(NamedTuple):
@@ -409,14 +415,25 @@ def _one_hot(y_idx, n_classes, dtype):
     return (y_idx.long()[..., None] == classes).to(dtype)
 
 
-def _softmax_psi(A, Y1, u):
-    """(psi, F, G, Pi): log-posterior value, logits, dloglik/dF, softmax.
-    A leading axis on u (a batch of trial points) gives a psi each."""
+def _softmax_rows(A, Y1, u):
+    """(F, Pi, G, ll): the logits [..., n, K] of these rows, their
+    softmax, dloglik/dF = Y1 - Pi, and their log-likelihood summed over
+    the rows (this rank's only). A leading axis on u (a batch of trial
+    points) gives an ll each."""
     F = matmul_hp(A, u)  # [..., n, K]
     Pi = torch.softmax(F, dim=-1)
-    G = Y1 - Pi
     ll = torch.sum(Y1 * (F - torch.logsumexp(F, dim=-1, keepdim=True)), dim=(-2, -1))
-    return ll - 0.5 * torch.sum(u * u, dim=(-2, -1)), F, G, Pi
+    return F, Pi, Y1 - Pi, ll
+
+
+def _softmax_psi(A, Y1, u):
+    """(psi, F, G, Pi, grad): the log-posterior value, logits, dloglik/dF,
+    softmax and grad psi = A^T G - u [m, K]. The log-likelihood and A^T G
+    are sums over the rows, taken in one ``row_sum``; the prior terms are
+    replicated, never summed over ranks."""
+    F, Pi, G, ll = _softmax_rows(A, Y1, u)
+    ll, AtG = row_sum(ll, matmul_hp(A.mT, G))
+    return ll - 0.5 * torch.sum(u * u), F, G, Pi, AtG - u
 
 
 def _softmax_G(A, Pi):
@@ -463,12 +480,15 @@ def _sqrt_gram_factor(G, jitter=1e-4):
     a 1e-6 relative floor and leave pass 1 indefinite."""
     p = G.shape[-1]
     I = eye(p, G.dtype, G.device)
-    B0 = I + matmul_hp(G.mT, G)
+    # the two Grams are sums over G's rows (``row_sum``): in a row-sharded
+    # step every rank factors the same p x p matrices, so safe_cholesky's
+    # retry flag reads alike on every rank; Gi = G R0^-1 stays per row
+    B0 = I + row_sum(matmul_hp(G.mT, G))
     L0 = safe_cholesky(_with_floor(B0, jitter), jitter)
     L0inv = tri_solve(L0, I)
     R0inv = L0inv.mT
     Gi = matmul_hp(G, R0inv)
-    B1 = matmul_hp(Gi.mT, Gi) + matmul_hp(L0inv, R0inv)
+    B1 = row_sum(matmul_hp(Gi.mT, Gi)) + matmul_hp(L0inv, R0inv)
     L1 = _cholesky_nan(B1)
     return matmul_hp(L1.mT, L0.mT)
 
@@ -495,7 +515,10 @@ class LogdetSqrtGram(torch.autograd.Function):
     """log det(I + G^T G) through the square-root factor. The backward is
     the exact identity d logdet = <2 G H^-1, dG> from the saved factor
     (one triangular inverse and one tall matmul). Under vmap the rule
-    hands the whole batch to one call."""
+    hands the whole batch to one call. In a row-sharded step G is this
+    rank's rows and G^T G a sum over every rank's: the backward weights
+    these rows by every rank's lambda (its all-reduce), as ``row_sum``'s
+    backward would (``parallel/rows.py``)."""
 
     @staticmethod
     def forward(G):
@@ -505,10 +528,13 @@ class LogdetSqrtGram(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         ctx.mark_non_differentiable(output[1])
         ctx.save_for_backward(inputs[0], output[1])
+        ctx.group = current_group()
 
     @staticmethod
     def backward(ctx, lam, _):
         G, R = ctx.saved_tensors
+        with sharded_rows(ctx.group):
+            lam = row_sum(lam)
         return _per_model(_logdet_grad, G, R, lam)
 
     @staticmethod
@@ -534,14 +560,16 @@ def _softmax_newton(A, Y1, iters):
     alphas = torch.tensor((1.0, 0.3, 0.1, 0.03), dtype=A.dtype, device=A.device)
     u = torch.zeros((m, K), dtype=A.dtype, device=A.device)
     for _ in range(int(iters)):
-        psi0, F, G, Pi = _softmax_psi(A, Y1, u)
-        grad = matmul_hp(A.mT, G) - u  # [m, K]
+        psi0, F, G, Pi, grad = _softmax_psi(A, Y1, u)
         R = _sqrt_gram_factor(_softmax_G(A, Pi))
         d = _sqrt_solve(R, grad.mT.reshape(K * m, 1))
         d = d.reshape(K, m).mT  # [m, K]
         tie_tol = 1e-5 * (1.0 + torch.abs(psi0))
         U_try = u[None] + alphas[:, None, None] * d[None]  # [4, m, K]
-        psis = _softmax_psi(A, Y1, U_try)[0]
+        # the ladder decides on the psis of all rows (one row_sum for the
+        # four): every rank of a row-sharded step takes the same step
+        lls = row_sum(_softmax_rows(A, Y1, U_try)[3])
+        psis = lls - 0.5 * torch.sum(U_try * U_try, dim=(-2, -1))
         best_u, best_psi = u, psi0
         for i in range(4):
             take = psis[i] >= best_psi - tie_tol if i == 0 else psis[i] > best_psi
@@ -554,15 +582,17 @@ def _softmax_newton(A, Y1, iters):
 def _softmax_mode_vjp(A, Y1, u, ubar):
     """IFT at the mode: F(u; A) = A^T (Y1 - softmax(A u)) - u = 0,
     dF/du = -H, so ubar^T du*/dA = w^T dF/dA with H w = ubar, solved
-    through the CholQR2 factor."""
+    through the CholQR2 factor. A^T (Y1 - softmax(A u)) is a sum over the
+    rows: its VJP at w is these rows' VJP at w summed over every rank
+    (``row_sum``'s backward), so w is all-reduced first."""
     m, K = u.shape
-    _, _, _, Pi = _softmax_psi(A, Y1, u)
+    Pi = torch.softmax(matmul_hp(A, u), dim=-1)
     R = _sqrt_gram_factor(_softmax_G(A, Pi))
     w = _sqrt_solve(R, ubar.mT.reshape(K * m, 1)).reshape(K, m).mT  # [m, K]
+    w = row_sum(w)
 
     def Ffn(A_):
-        G_ = Y1 - torch.softmax(matmul_hp(A_, u), dim=-1)
-        return matmul_hp(A_.mT, G_) - u
+        return matmul_hp(A_.mT, Y1 - torch.softmax(matmul_hp(A_, u), dim=-1))
 
     _, vjp = torch.func.vjp(Ffn, A)
     return vjp(w)[0]
@@ -572,7 +602,8 @@ class SoftmaxModeImplicit(torch.autograd.Function):
     """The softmax Newton mode with the implicit-function-theorem backward
     (the JAX package's custom_vjp): the forward runs the Newton iterations
     on detached inputs, the backward solves H w = ubar at the mode and
-    takes the VJP of the stationarity condition with respect to A."""
+    takes the VJP of the stationarity condition with respect to A. In a
+    row-sharded step the backward runs in the forward's group."""
 
     @staticmethod
     def forward(A, Y1, iters):
@@ -581,11 +612,13 @@ class SoftmaxModeImplicit(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.save_for_backward(inputs[0], inputs[1], output)
+        ctx.group = current_group()
 
     @staticmethod
     def backward(ctx, ubar):
         A, Y1, u = ctx.saved_tensors
-        return _per_model(_softmax_mode_vjp, A, Y1, u, ubar), None, None
+        with sharded_rows(ctx.group):
+            return _per_model(_softmax_mode_vjp, A, Y1, u, ubar), None, None
 
     @staticmethod
     def vmap(info, in_dims, A, Y1, iters):
@@ -619,8 +652,7 @@ def multiclass_laplace_projected(A, y_idx, n_classes, newton_iters=15,
         u_star = SoftmaxModeImplicit.apply(A, Y1, int(newton_iters))
     else:
         u_star = _softmax_newton(A, Y1, int(newton_iters))
-    psi, F, G, Pi = _softmax_psi(A, Y1, u_star)
-    grad = matmul_hp(A.mT, G) - u_star
+    psi, F, G, Pi, grad = _softmax_psi(A, Y1, u_star)
     logdet = logdet_sqrt_gram(_softmax_G(A, Pi))
     return MulticlassLaplaceResult(
         u_mode=u_star,

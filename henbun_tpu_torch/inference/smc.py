@@ -100,8 +100,10 @@ def sample(log_prior, log_likelihood, init_particles, generator=None, num_move_s
     - mesh: a DeviceMesh whose ``chain`` dimension splits the particles
       (``parallel/chains.py``): each rank moves its block; a stage
       all-gathers the log-likelihoods (the ESS bisection, the evidence and
-      the resampling draw then run on all P on every rank), the particle
-      state the resampled block is taken from, and the move accepts.
+      the resampling draw then run on all P on every rank), the [P, dim]
+      particles the resampled block is taken from (the block's densities
+      and gradients are then evaluated anew) and each particle's count of
+      accepted moves: P (dim + 2) floats a stage, whatever the moves.
     Returns SMCResult (particles are equal-weight after the final stage),
     every particle on every rank.
     """
@@ -143,8 +145,9 @@ def sample(log_prior, log_likelihood, init_particles, generator=None, num_move_s
     log_P = math.log(P_ * 1.0)
     n_stages = 0
     # (particles, log prior, its gradient, log likelihood, its gradient):
-    # the moves carry every term to the next stage, so a stage evaluates
-    # the densities only inside its leapfrogs
+    # the moves carry every term from one move to the next; after the
+    # resampling the block's terms are evaluated anew, so a stage exchanges
+    # the particles only
     state = (particles,) + vg_prior(particles) + vg_lik(particles)
     while n_stages < max_stages and float(beta) < 1.0 - 1e-6:  # one host read a stage
         (lp_lik,) = sh.gather_rows(state[3])
@@ -154,17 +157,18 @@ def sample(log_prior, log_likelihood, init_particles, generator=None, num_move_s
         log_Z = log_Z + torch.logsumexp(log_w, dim=0) - log_P
         beta = beta + delta
         idx = sh.local(_systematic_index(g, log_w))
-        state = tuple(x[idx] for x in sh.gather_rows(*state))
-        accepts = []
+        theta = sh.gather(state[0])[idx]
+        state = (theta,) + vg_prior(theta) + vg_lik(theta)
+        accepted = torch.zeros(sh.local_n, dtype=torch.float32, device=dev)
         for _ in range(int(num_move_steps)):
-            state, accepted = move(*state, beta, eps)
-            accepts.append(accepted.to(torch.float32))
-        acc_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        for accepted in sh.gather_rows(*accepts):
-            acc_sum = acc_sum + torch.mean(accepted)
+            state, acc = move(*state, beta, eps)
+            accepted = accepted + acc.to(torch.float32)
+        # the accept counts are whole numbers, so their sum is exact in any
+        # order: every rank and one process read the same rate
+        (accepted,) = sh.gather_rows(accepted)
         # per-stage step-size adaptation: the tempered target sharpens as
         # beta grows; nudge eps toward ~0.65 accept (Robbins-Monro style)
-        acc_rate = acc_sum / num_move_steps
+        acc_rate = torch.sum(accepted) / (P_ * num_move_steps)
         eps = torch.clamp(eps * torch.exp(0.5 * (acc_rate - 0.65)), step_size * 1e-3,
                           step_size * 1e3)
         n_stages += 1

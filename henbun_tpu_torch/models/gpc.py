@@ -331,7 +331,8 @@ class SparseGPMulticlass(Model):
     curvature), so this rides ``multiclass_laplace_projected``, which works
     on the curvature's square-root factor (shifted CholeskyQR2) and never
     forms I + A^T W A. Labels Y are integer class indices [n, 1]. Train
-    full-batch (see SparseGPC)."""
+    full-batch (see SparseGPC); the evidence is ``row_sharded`` as
+    SparseGPC's is."""
 
     def setUp(self, X, Y, num_classes, num_inducing=64, kern=None,
               newton_iters=15, train_z=False, z_penalty=None, z_init=None):
@@ -351,8 +352,10 @@ class SparseGPMulticlass(Model):
         )
 
     @AutoOptimize()
+    @row_sharded
     def log_marginal_laplace(self):
-        """Multiclass Laplace evidence: deterministic; IFT gradients."""
+        """Multiclass Laplace evidence: deterministic; IFT gradients;
+        ``row_sharded`` (see SparseGPC)."""
         from ._zguard import z_guard
 
         return self._laplace(self._A(self.x)).log_marginal - z_guard(self)

@@ -9,6 +9,10 @@ by the same arithmetic as in one process, so every rank agrees on it bit
 for bit and the run equals the one-process run on the same chains. The
 results are gathered at the end: a sampler returns the whole run on every
 rank. Without a mesh every operation here is the identity.
+
+Every collective is counted in :data:`stats`: calls, bytes of the
+gathered (or reduced) result, and {its shape: calls}, the counterpart of
+the JAX tests' reading of the compiled sampler's collectives.
 """
 from __future__ import annotations
 
@@ -17,6 +21,18 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from . import mesh as mesh_mod
+
+stats = {"calls": 0, "bytes": 0, "shapes": {}}
+
+
+def reset_stats():
+    stats.update(calls=0, bytes=0, shapes={})
+
+
+def _count(shape, dtype):
+    stats["calls"] += 1
+    stats["bytes"] += int(torch.Size(shape).numel()) * dtype.itemsize
+    stats["shapes"][tuple(shape)] = stats["shapes"].get(tuple(shape), 0) + 1
 
 
 class ChainShard:
@@ -48,6 +64,7 @@ class ChainShard:
             return self.gather(x.to(torch.uint8), dim).bool()
         x = x.movedim(dim, 0).contiguous()
         parts = [torch.empty_like(x) for _ in range(self.size)]
+        _count((self.n,) + tuple(x.shape[1:]), x.dtype)
         dist.all_gather(parts, x, group=self.group)
         return torch.cat(parts).movedim(0, dim)
 
@@ -70,5 +87,6 @@ class ChainShard:
         if self.size == 1:
             return flag
         f = flag.to(torch.int32).reshape(1)
+        _count(f.shape, f.dtype)
         dist.all_reduce(f, op=dist.ReduceOp.MAX, group=self.group)
         return f[0] > 0

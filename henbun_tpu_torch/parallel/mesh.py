@@ -13,15 +13,21 @@ network, no port), so a one-card job needs no set-up, as a one-chip JAX
 job needs none. A job of several processes calls
 :func:`initialize_distributed` first, with the store or address every
 rank shares.
+
+The device type of a mesh or group is the caller's, else that of the
+``[cuda] device`` setting, resolved as a Model's device is
+(``_settings.resolve_device``): a CUDA device that is not there raises;
+nothing falls back to gloo on the CPU.
 """
 from __future__ import annotations
 
 import os
 import tempfile
 
-import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
+
+from .._settings import resolve_device
 
 DATA_AXIS = "data"
 CHAIN_AXIS = "chain"
@@ -31,19 +37,17 @@ def _backend(device_type):
     return "nccl" if device_type == "cuda" else "gloo"
 
 
-def _default_device_type():
-    return "cuda" if torch.cuda.is_available() else "cpu"
-
-
 def initialize_distributed(init_method=None, world_size=None, rank=None, backend=None):
     """Start this process's group: ``init_process_group`` with `backend`
-    (default NCCL with a card, gloo without), `init_method`
-    (``"file:///path"``, shared by the ranks, or ``"tcp://host:port"``),
-    `world_size` and `rank`. A no-op for a single process (world_size None
-    or 1): :func:`make_mesh` then starts a one-rank group itself."""
+    (default NCCL for the ``[cuda] device`` setting's CUDA, gloo for
+    ``cpu``; raises when the setting asks for a card that is not there),
+    `init_method` (``"file:///path"``, shared by the ranks, or
+    ``"tcp://host:port"``), `world_size` and `rank`. A no-op for a single
+    process (world_size None or 1): :func:`make_mesh` then starts a
+    one-rank group itself."""
     if world_size is None or world_size <= 1 or dist.is_initialized():
         return
-    dist.init_process_group(backend or _backend(_default_device_type()),
+    dist.init_process_group(backend or _backend(resolve_device().type),
                             init_method=init_method, world_size=world_size, rank=rank)
 
 
@@ -56,9 +60,9 @@ def _single_process_group(device_type):
 def make_mesh(n_data=None, n_chain=1, device_type=None):
     """A ``DeviceMesh`` of shape (n_data, n_chain) over the world, with
     dimensions ``("data", "chain")``. By default every rank goes to the
-    data dimension. `device_type` defaults to ``"cuda"`` with a card,
-    else ``"cpu"``."""
-    device_type = device_type or _default_device_type()
+    data dimension. `device_type` (``"cuda"`` or ``"cpu"``) defaults to
+    the ``[cuda] device`` setting's; a CUDA mesh without a card raises."""
+    device_type = resolve_device(device_type).type
     if not dist.is_initialized():
         _single_process_group(device_type)
     n = dist.get_world_size()

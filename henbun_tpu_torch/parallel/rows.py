@@ -1,9 +1,11 @@
 """Sums over the rows of a full-batch objective, for row-sharded steps.
 
 The sparse evidence engines (``inference/laplace.py``'s generic Newton
-loop and its evidence, ``inference/ep.py``'s projected EP) see the data
-only through sums over its rows: sum_i loglik_i, A^T g, A^T W A,
-A^T T A, A^T nu, the site terms. Everything else is m x m algebra built
+loop and its evidence, its softmax engine, ``inference/ep.py``'s
+projected EP) see the data only through sums over its rows:
+sum_i loglik_i, A^T g, A^T W A, A^T T A, A^T nu, the site terms, and
+the softmax engine's A^T G and the Grams G^T G and Gi^T Gi of its
+square-root curvature factor. Everything else is m x m (Km x Km) algebra built
 from those sums, or a per-row quantity (a site, a marginal) that only its
 own row reads. So when the rows are split over ranks, each rank can keep
 a contiguous block of them, take its partial sums, and all-reduce them;
@@ -32,6 +34,13 @@ gradient is dG/dtheta (the replicated terms, once) + n dG/dS ds_r/dtheta
 replicated terms and dG/dS sum_r ds_r/dtheta for the rows: each row
 summed once, exactly the one-process gradient. The objective itself is
 the same on every rank, and so is its mean.
+
+An ``autograd.Function`` that takes its row sums inside its forward
+(where autograd does not see :class:`_RowSum`) keeps
+:func:`current_group` and gives its backward the same weights: it
+all-reduces the cotangent that meets its rows, as ``_RowSum.backward``
+would (the softmax engine's ``LogdetSqrtGram`` sums its lambda, the IFT
+backward of ``SoftmaxModeImplicit`` its solve w).
 
 Every call is counted (:data:`stats`): the all-reduces a step and their
 bytes, forward and backward, which depend on m and the iteration counts
@@ -63,12 +72,20 @@ def is_row_sharded(method):
 
 @contextlib.contextmanager
 def sharded_rows(group):
-    """Inside: row_sum and row_max reduce over `group`'s ranks."""
+    """Inside: row_sum and row_max reduce over `group`'s ranks (with None
+    they stay the identity)."""
     _GROUP.append(group)
     try:
         yield
     finally:
         _GROUP.pop()
+
+
+def current_group():
+    """The group of the row-sharded step being evaluated, or None. An
+    ``autograd.Function`` that sums rows inside its forward keeps it for
+    its backward, which re-enters :func:`sharded_rows` with it."""
+    return _GROUP[-1] if _GROUP else None
 
 
 def reset_stats():
@@ -101,8 +118,9 @@ def row_sum(*parts):
     `parts` (tensors of any shapes), as one all-reduce; the identity
     outside a row-sharded step. Returns a tensor for one part, else a
     tuple."""
-    if _GROUP:
-        flat = _RowSum.apply(torch.cat([p.reshape(-1) for p in parts]), _GROUP[-1])
+    group = current_group()
+    if group is not None:
+        flat = _RowSum.apply(torch.cat([p.reshape(-1) for p in parts]), group)
         out, off = [], 0
         for p in parts:
             out.append(flat[off:off + p.numel()].reshape(p.shape))
@@ -114,7 +132,8 @@ def row_sum(*parts):
 def row_max(x):
     """The largest of every rank's `x` (a diagnostic; no gradient); the
     identity outside a row-sharded step."""
-    if not _GROUP:
+    group = current_group()
+    if group is None:
         return x
-    return _all_reduce(x.detach().reshape(-1).clone(), _GROUP[-1],
+    return _all_reduce(x.detach().reshape(-1).clone(), group,
                        dist.ReduceOp.MAX).reshape(x.shape)

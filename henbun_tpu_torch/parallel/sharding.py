@@ -26,10 +26,23 @@ from . import mesh as mesh_mod
 from . import rows
 
 
+# the optimizers' all-reduces (gradients, objective, diagnostics): calls and
+# bytes, the counterpart of the JAX tests' reading of the compiled step's
+# collectives; a row-sharded objective's own are counted in rows.stats
+stats = {"calls": 0, "bytes": 0}
+
+
+def reset_stats():
+    stats.update(calls=0, bytes=0)
+
+
 def _flat_all_reduce(tensors, group, op=dist.ReduceOp.SUM):
-    """All-reduce a list of tensors as one flat buffer; returns the reduced
-    tensors (new ones, in the inputs' shapes)."""
+    """All-reduce a list of tensors as one flat buffer (counted in
+    :data:`stats`); returns the reduced tensors (new ones, in the inputs'
+    shapes)."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
+    stats["calls"] += 1
+    stats["bytes"] += flat.numel() * flat.element_size()
     dist.all_reduce(flat, op=op, group=group)
     out, off = [], 0
     for t in tensors:

@@ -10,8 +10,8 @@ gradient against float64, the samplers' evaluation captured as a CUDA
 graph where the target never reads the host and eager where it does, the
 heteroscedastic fleet and the multi-output natural gradient on K1 and K2,
 streaming into a model on the card, K1 and K2 through their custom ops,
-a served multi-output predictor, a sharded fleet over a one-rank NCCL
-mesh, the port's dry run (``entry.dryrun_multichip``) on one NCCL rank,
+a served multi-output predictor, a sharded fleet and the row-sharded
+multiclass evidence over a one-rank NCCL mesh, the port's dry run (``entry.dryrun_multichip``) on one NCCL rank,
 the JAX package's accuracy gates
 of the heteroscedastic, multi-output, deep GP, GP-LVM and Expert GPR
 families at its tests' step counts and limits, and the gaussian_process
@@ -580,18 +580,25 @@ def test_bayes_log_prob_of_8_chains_kernels_on_matches_off():
 MULTICLASS_F64_LIMITS = {"gp.kern.lengthscales": 1.5e-4, "k_var": 5e-5}
 
 
+def _three_class_rows(n):
+    """n sorted U[0, 6] inputs, labels drawn from the softmax of
+    2.5 sin(x + s), s = 0, 2.1, 4.2."""
+    rng = np.random.default_rng(0)
+    X = np.sort(rng.uniform(0, 6, (n, 1))).astype(np.float32)
+    L = 2.5 * np.concatenate([np.sin(X + s) for s in (0.0, 2.1, 4.2)], axis=1)
+    P = np.exp(L - L.max(1, keepdims=True))
+    P /= P.sum(1, keepdims=True)
+    y = (P.cumsum(1) < rng.uniform(size=(n, 1))).sum(1).astype(np.int32)[:, None]
+    return X, y
+
+
 def test_sparse_gp_multiclass_evidence_card_matches_cpu():
     """SparseGPMulticlass at n = 2e4, m = 32, K = 3: the evidence on the card
     against the CPU at the same weights (rtol 1e-4), and every gradient leaf
     of the card held to the card's float64 evaluation at its limit
     (MULTICLASS_F64_LIMITS), whether or not it is within 1e-4 of the CPU's."""
     dev = _card()
-    rng = np.random.default_rng(0)
-    X = np.sort(rng.uniform(0, 6, (20000, 1))).astype(np.float32)
-    L = 2.5 * np.concatenate([np.sin(X + s) for s in (0.0, 2.1, 4.2)], axis=1)
-    P = np.exp(L - L.max(1, keepdims=True))
-    P /= P.sum(1, keepdims=True)
-    y = (P.cumsum(1) < rng.uniform(size=(20000, 1))).sum(1).astype(np.int32)[:, None]
+    X, y = _three_class_rows(20000)
 
     def evaluate(device):
         thb.set_seed(0)
@@ -831,7 +838,7 @@ def test_sharded_fleet_over_nccl_matches_the_batched_optimizer():
     g.manual_seed(0)
     noise = [torch.randn(4, 20, generator=g, device=dev) for _ in range(5)]
     try:
-        mesh = parallel.make_mesh()
+        mesh = parallel.make_mesh(device_type="cuda")
         assert dist.get_backend() == "nccl"
         hists = []
         for sharded in (False, True):
@@ -847,6 +854,45 @@ def test_sharded_fleet_over_nccl_matches_the_batched_optimizer():
             bo.optimize(maxiter=5)
             hists.append(bo.history[-1])
         np.testing.assert_allclose(hists[1], hists[0], rtol=1e-6)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_row_sharded_multiclass_over_one_nccl_rank_is_one_process():
+    """SparseGPMulticlass.log_marginal_laplace (row_sharded) at n = 2e4,
+    m = 32, K = 3 under ShardedOptimizer on a one-rank NCCL mesh: its one
+    data rank takes every row, and the objective, the first step's
+    gradients, 5 Adam steps and the weights are bit for bit the
+    one-process run's."""
+    import torch.distributed as dist
+    from henbun_tpu_torch import parallel
+
+    dev = _card()
+    X, y = _three_class_rows(20000)
+    try:
+        mesh = parallel.make_mesh(device_type="cuda")
+        assert dist.get_backend() == "nccl"
+        runs = []
+        for sharded in (False, True):
+            thb.set_seed(0)
+            m = thb.models.SparseGPMulticlass(seed=0, X=X, Y=y, num_classes=3, num_inducing=32,
+                                              device=dev)
+            opt = (parallel.ShardedOptimizer(m, "log_marginal_laplace", mesh=mesh) if sharded
+                   else m.log_marginal_laplace())
+            opt.compile(learning_rate=0.05)
+            opt.optimize(maxiter=1)
+            grads = {k: t.grad.cpu().numpy() for k, t in opt._trainable.items()}
+            opt.optimize(maxiter=4)
+            runs.append((np.concatenate(opt.history), grads,
+                         {k: v.detach().cpu().numpy() for k, v in m.param_dict().items()}))
+        (h0, g0, p0), (h1, g1, p1) = runs
+        assert np.isfinite(h0).all()
+        np.testing.assert_array_equal(h1, h0)
+        for k in g0:
+            np.testing.assert_array_equal(g1[k], g0[k], err_msg=k)
+        for k in p0:
+            np.testing.assert_array_equal(p1[k], p0[k], err_msg=k)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

@@ -2,7 +2,8 @@
 CPU: ``entry()``'s ELBO against the JAX package's at the same weights and
 the same draws (rtol 1e-5), and ``dryrun_multichip(2)`` running its six
 mechanisms on two gloo ranks (processes of the module), with a failing
-rank raising."""
+rank raising, and the entry points raising without a card unless told
+"cpu"."""
 import zlib
 
 import numpy as np
@@ -53,3 +54,23 @@ def test_dryrun_multichip_raises_when_a_rank_fails():
         pytest.skip("a card is present: the ranks would not fail")
     with pytest.raises(RuntimeError, match="rank [01] of 2 failed"):
         entry.dryrun_multichip(2, device="cuda")
+
+
+def test_entry_and_dryrun_without_a_card_raise_unless_told_cpu():
+    """With no card and no device, entry() and dryrun_multichip(1) take
+    the [cuda] device setting's CUDA and raise the RuntimeError a Model
+    raises (before any rank starts); with the setting at cpu, entry()
+    runs on the CPU."""
+    import henbun_tpu_torch as thb
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: CUDA is there to take")
+    for call in (entry.entry, lambda: entry.dryrun_multichip(1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    cfg = thb.settings.get_settings()
+    cfg.cuda.device = "cpu"
+    with thb.settings.temp_settings(cfg):
+        fn, (params, _) = entry.entry()
+    assert next(iter(params.values())).device.type == "cpu"
+    assert np.isfinite(float(fn(params)))

@@ -15,10 +15,18 @@ mean of two ranks' float32 sums against one sum over the union), the
 chain-sharded samplers at rtol 1e-6 (the cross-chain quantities are
 computed from gathered per-chain values by the one-process arithmetic);
 the row-sharded evidence (SparseGPC, SparseGPRobust at n = 200 and 201,
-m = 12, test_torch_sparse_evidence.py's data) at rtol 1e-5 and 1e-5 of
-each leaf against the one-process port, 1e-10 in float64, and at rtol
-1e-4 against the JAX package's sharded value.
+m = 12, test_torch_sparse_evidence.py's data; SparseGPMulticlass at
+n = 200 and 201, K = 3, m = 12, test_torch_multiclass.py's three-class
+data) at rtol 1e-5 and 1e-5 of each leaf against the one-process port,
+1e-10 in float64, and at rtol 1e-4 against the JAX package's sharded
+value. The twins of the JAX tests' SVGP families and collective
+contracts read the port's collective counters (``parallel.sharding``,
+``parallel.rows``, ``parallel.chains``: calls, bytes, shapes) where the
+JAX tests read the compiled program; each states its tolerance. Without
+a card, the mesh's default device type (the ``[cuda] device`` setting)
+raises; the ranks and the tests name ``device_type="cpu"``.
 """
+import contextlib
 import os
 import pathlib
 import subprocess
@@ -42,6 +50,7 @@ from henbun_tpu_torch.inference import chees, hmc, nuts, smc
 from henbun_tpu_torch.interop import params_from_jax
 
 import test_torch_parallel_ranks as ranks
+from test_torch_multiclass import _three_class
 from test_torch_sparse_evidence import _cls, _ep_reference, _outlier_bed
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -53,6 +62,7 @@ CHAINS = 8
 PARTICLES = 16
 SVGP_N = 128    # tests/test_parallel.py's SVGP twin: rows,
 SVGP_ROWS = 8   # and minibatch rows a rank
+FAMILY_N = 64   # rows of the SVGP family twins
 
 
 def _u(key, path="q", n=N):
@@ -110,6 +120,7 @@ def run(tmp_path_factory):
     svgp_local = (SVGP_N - SVGP_N // 10) // WORLD  # the Indexer's train split, per rank
     inputs.update(svgp_X=sv_X, svgp_Y=(np.sin(sv_X) + 0.3 * rng.normal(size=sv_X.shape)).astype(
         np.float32), svgp_pos=rng.integers(0, svgp_local, (WORLD, ranks.TWIN_STEPS, SVGP_ROWS)))
+    inputs.update(_family_inputs(rng))
     np.savez(d / "inputs.npz", **inputs)
     thb.io.loader._lib()  # build the loader once, before the ranks load it
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
@@ -135,19 +146,38 @@ def _mean_data(n=64):
     return (rng.normal(size=(n, 2)) + np.array([1.0, -2.0])).astype(np.float32)
 
 
-EVIDENCE_DATA = {"gpc": _cls, "robust": lambda n, seed: _outlier_bed(n, seed=3)}
+def _family_inputs(rng):
+    """tests/test_parallel.py's SVGP families' data at FAMILY_N rows: the
+    three-class labels floor(x) mod 3 and Poisson counts of
+    exp(sin x + 1) on sorted U[0, 6] inputs, make_hetero_dataset and
+    make_multioutput_dataset; each rank's minibatch rows."""
+    X = np.sort(rng.uniform(0, 6, (FAMILY_N, 1)).astype(np.float32), axis=0)
+    hX, hY, _ = thb.models.make_hetero_dataset(n=FAMILY_N, seed=0)
+    mX, mY, _ = thb.models.make_multioutput_dataset(n=FAMILY_N, seed=0)
+    local = (FAMILY_N - FAMILY_N // 10) // WORLD  # the Indexer's train split, per rank
+    return dict(fam_X=X, fam_labels=(np.floor(X[:, 0]) % 3).astype(np.int32)[:, None],
+                fam_counts=rng.poisson(np.exp(np.sin(X) + 1.0)).astype(np.float32),
+                hetero_X=hX, hetero_Y=hY, mo_X=mX, mo_Y=mY,
+                fam_pos=rng.integers(0, local, (WORLD, ranks.TWIN_STEPS, ranks.FAMILY_ROWS)))
+
+
+EVIDENCE_DATA = {"gpc": _cls, "robust": lambda n, seed: _outlier_bed(n, seed=3),
+                 "multiclass": _three_class}
 EVIDENCE_MODELS = {"gpc": (jmodels.SparseGPC, thb.models.SparseGPC),
-                   "robust": (jmodels.SparseGPRobust, thb.models.SparseGPRobust)}
+                   "robust": (jmodels.SparseGPRobust, thb.models.SparseGPRobust),
+                   "multiclass": (jmodels.SparseGPMulticlass, thb.models.SparseGPMulticlass)}
 
 
 def _evidence_inputs():
     """Each evidence case's data and the JAX package's weights (after
     ``initialize()``, frozen z included), as ``se_*`` arrays."""
     out = {}
-    for family, n in {(f, n) for _, f, _, n in ranks.EVIDENCE} | {("gpc", 400), ("robust", 201)}:
+    for family, n in {(f, n) for _, f, _, n in ranks.EVIDENCE} | {
+            ("gpc", 400), ("robust", 201), ("multiclass", 400)}:
         X, Y = EVIDENCE_DATA[family](n, seed=0)
         jhb.set_seed(0)
-        jm = EVIDENCE_MODELS[family][0](seed=0, X=X, Y=Y, num_inducing=ranks.M_IND)
+        jm = EVIDENCE_MODELS[family][0](seed=0, X=X, Y=Y, num_inducing=ranks.M_IND,
+                                        **ranks.FAMILY_KW[family])
         jm.initialize()
         out["se_%s_%d_X" % (family, n)], out["se_%s_%d_Y" % (family, n)] = X, Y
         out.update({"se_p:%s_%d:%s" % (family, n, k): v.numpy()
@@ -165,7 +195,8 @@ def jax_evidence(run):
     for name, family, method, n in ranks.EVIDENCE:
         X, Y = inputs["se_%s_%d_X" % (family, n)], inputs["se_%s_%d_Y" % (family, n)]
         jhb.set_seed(0)
-        jm = EVIDENCE_MODELS[family][0](seed=0, X=X, Y=Y, num_inducing=ranks.M_IND)
+        jm = EVIDENCE_MODELS[family][0](seed=0, X=X, Y=Y, num_inducing=ranks.M_IND,
+                                        **ranks.FAMILY_KW[family])
         jm.initialize()
         mesh = jax_mesh() if n % 8 == 0 else jax_mesh(devices=jax.devices()[:3])
         mp = pytest.MonkeyPatch()
@@ -189,11 +220,11 @@ def test_mesh_sizing_and_the_single_process_group():
     ShardedOptimizer on it is the single-device driver, bit for bit."""
     assert not torch.distributed.is_initialized()
     try:
-        mesh = parallel.make_mesh()
+        mesh = parallel.make_mesh(device_type="cpu")
         assert tuple(mesh.shape) == (1, 1)
         assert mesh.mesh_dim_names == (parallel.DATA_AXIS, parallel.CHAIN_AXIS)
         with pytest.raises(ValueError, match="does not cover"):
-            parallel.make_mesh(n_data=2, n_chain=1)
+            parallel.make_mesh(n_data=2, n_chain=1, device_type="cpu")
         runs = []
         for sharded in (False, True):
             thb.set_seed(0)
@@ -572,3 +603,144 @@ def test_sharded_svgp(run):
     opt.optimize(maxiter=ranks.TWIN_STEPS, minibatch_size=union.shape[1])
     for o in out:
         _assert_matches(o["svgp"], opt.history[-1], m)
+
+
+# ------------------------------------------------------ the multiclass row sums
+def test_row_sharded_multiclass_collectives_and_cholesky_flags(run):
+    """SparseGPMulticlass's row sums (the softmax terms, A^T G, the two
+    CholQR2 Grams, the trial psis, the IFT's w, the logdet's lambda): the
+    same all-reduces in number and bytes at 200 and at 400 rows, each at
+    most p^2 + p + 5 floats (p = K m, the Gram); and every factorization
+    safe_cholesky's ladder reads back has the same NaN flag on both ranks
+    and in one process, so every rank takes the same host decisions."""
+    inputs, _, out = run
+    p = ranks.CLASSES * ranks.M_IND
+    with ranks.cholesky_flags() as flags:
+        ranks.evidence_step(ranks.evidence_model(inputs, "multiclass", 200).log_marginal_laplace())
+    assert flags
+    for o in out:
+        at200, at400 = (o["evidence_collectives"]["multiclass", n] for n in (200, 400))
+        assert at200["stats"] == at400["stats"] and at200["stats"]["calls"] > 0
+        assert at200["stats"]["bytes"] <= 4 * (p * p + p + 5) * at200["stats"]["calls"]
+        assert at200["flags"] == flags
+    a, b = (o["evidence_collectives"]["multiclass", 400]["flags"] for o in out)
+    assert a == b
+
+
+# ---------------- the twins of tests/test_parallel.py's families and collectives
+def _family_twin(run, family):
+    """The family's minibatch objective on the two ranks against the
+    one-process port on the union of their rows drawing its own noise:
+    in float64 the objectives and the parameters after 20 steps agree to
+    rtol 1e-10 (the sharded step is the one-process step); in float32 the
+    objectives to rtol 1e-5 and the parameters within 1e-4 of each leaf's
+    largest entry (the float32 rounding of a near-zero gradient component,
+    a mean of two ranks' sums against one sum, becomes a difference of
+    Adam's normalised step: measured up to 2.4e-5 of a leaf at lr 0.02,
+    the JAX tests' rate). And the steps' collectives: one all-reduce a step
+    of the gradients and the objective (parameters + 1 floats), no row
+    sum, no chain collective, nothing shaped like the batch."""
+    inputs, _, out = run
+    method = dict(ranks.SVGP_FAMILIES)[family]
+    union = np.concatenate([o["svgp_families"][family]["rows"] for o in out], axis=1)
+    want = []
+    for dtype in ("float32", "float64"):
+        with ranks.float64() if dtype == "float64" else contextlib.nullcontext():
+            m = ranks.family_model(inputs, family)
+            opt = getattr(m, method)().compile(learning_rate=0.02)
+            opt.row_source = lambda s: union[s]
+            opt.optimize(maxiter=ranks.TWIN_STEPS, minibatch_size=union.shape[1])
+        assert np.isfinite(opt.history[-1]).all()
+        want.append((opt.history[-1], ranks.params_of(m)))
+    (h32, p32), (h64, p64) = want
+    for o in out:
+        got = o["svgp_families"][family]
+        np.testing.assert_allclose(got["hist"], h32, rtol=1e-5)
+        _leaves_close(got["params"], p32, family + " float32", 1e-4)
+        np.testing.assert_allclose(got["float64"]["hist"], h64, rtol=1e-10)
+        for k, v in p64.items():
+            np.testing.assert_allclose(got["float64"]["params"][k], v, rtol=1e-10, atol=1e-12,
+                                       err_msg=family + " float64 " + k)
+        st = got["stats"]
+        assert st["sharding"] == {"calls": ranks.TWIN_STEPS,
+                                  "bytes": ranks.TWIN_STEPS * 4 * (got["floats"] + 1)}
+        assert st["rows"]["calls"] == 0 and st["chains"]["calls"] == 0
+
+
+@pytest.mark.parametrize("family", ["multiclass", "count"])
+def test_sharded_multiclass_and_count(run, family):
+    """SVGPMulticlass.ELBO (three latent GPs, labels floor(x) mod 3) and
+    SVGPCount.ELBO_analytic (Poisson counts) at 64 rows, m = 8,
+    minibatch 16, 20 steps (the JAX test: 2,048 rows, m = 16, 400
+    steps)."""
+    _family_twin(run, family)
+
+
+@pytest.mark.parametrize("family", ["hetero", "multioutput"])
+def test_sharded_hetero_and_lmc_svgp(run, family):
+    """HeteroSVGP.ELBO_analytic and MultiOutputSVGP.ELBO_analytic (Q = 2)
+    at 64 rows, m = 8, minibatch 16, 20 steps (the JAX test: 4,096 rows,
+    m = 16, 600 steps)."""
+    _family_twin(run, family)
+
+
+def test_sharded_chunk_collectives(run):
+    """The twin of test_sharded_chunk_hlo_collectives: 10 minibatch steps
+    of the _MeanModel at minibatch 64 (32 rows a rank) take one
+    all-reduce a step of the gradient and the objective, 3 floats (12
+    bytes; a rank's [32, 2] rows would be 256), and no other collective."""
+    _, _, out = run
+    for o in out:
+        got = o["chunk_collectives"]
+        assert got["floats"] == 2
+        assert got["stats"]["sharding"] == {"calls": 10, "bytes": 10 * 4 * (got["floats"] + 1)}
+        assert got["stats"]["rows"] == {"calls": 0, "bytes": 0}
+        assert got["stats"]["chains"]["calls"] == 0
+
+
+def test_smc_resampling_collectives(run):
+    """The twin of test_smc_resampling_hlo_collectives: an SMC stage over
+    the chain-sharded particles gathers the [P] log-likelihoods, the one
+    [P, dim] particle block the resampled block is taken from and the [P]
+    accept counts, P (dim + 2) floats a stage whatever the number of
+    moves (2 and 4); the run's one other collective is the final [P, dim]
+    gather of the particles."""
+    _, _, out = run
+    P, dim = PARTICLES, 3
+    per_stage = set()
+    for o in out:
+        for moves, got in o["smc_collectives"].items():
+            st, k = got["stats"]["chains"], got["stages"]
+            assert k > 0
+            assert st["shapes"] == {(P, dim): k + 1, (P, 1): 2 * k}, (moves, st)
+            assert st["calls"] == 3 * k + 1
+            per_stage.add((st["bytes"] - 4 * P * dim) / k)
+    assert per_stage == {4 * P * (dim + 2)}
+
+
+# ------------------------------------------- no silent CPU default (no card here)
+def test_make_mesh_without_a_card_raises_unless_told_cpu(tmp_path):
+    """With no card, make_mesh() and a two-rank initialize_distributed()
+    take the [cuda] device setting's CUDA and raise, as a Model does, and
+    start no group; told "cpu" (or with the setting at cpu) they build a
+    gloo CPU mesh."""
+    import torch.distributed as dist
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: CUDA is there to take")
+    assert not dist.is_initialized()
+    for call in (parallel.make_mesh, lambda: parallel.make_mesh(device_type="cuda"),
+                 lambda: parallel.initialize_distributed(
+                     "file://" + str(tmp_path / "store"), world_size=2, rank=0)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        assert not dist.is_initialized()
+    cfg = thb.settings.get_settings()
+    cfg.cuda.device = "cpu"
+    try:
+        with thb.settings.temp_settings(cfg):
+            mesh = parallel.make_mesh()
+        assert mesh.device_type == "cpu" and dist.get_backend() == "gloo"
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
