@@ -292,7 +292,8 @@ def escalating_cholesky(A, jitter, read_host=True):
     the matrices still NaN, as the JAX package's masked ``while_loop``
     does. ``read_host`` stops the ladder once no factor is NaN, one flag
     read back a rung; without it (a traced, exported program) both rungs
-    always run: the same factor at three factorizations a call."""
+    always run: the same factor at three factorizations a call, or once in
+    all where the matrix is frozen state (``serving`` folds it)."""
     n = A.shape[-1]
     eye_n = torch.eye(n, dtype=A.dtype, device=A.device)
     L = _cholesky_dispatch(A + jitter * eye_n)

@@ -33,12 +33,22 @@ platform.
 ``save`` writes one zip of one ``torch.export.save`` file per platform;
 a platform's program is deserialized at its first call, so a file with a
 CUDA program loads and serves on a CPU-only host.
+
+At that first call the program's module is also folded: the part of the
+graph that depends only on the frozen state (for ``GPRMarginal.predict_f``
+the training gram, its factor through the masked ladder, and ``alpha``) is
+evaluated once on the platform's device and kept as buffers, and every
+call runs only what reads its arguments. The saved program is unchanged.
+``artifact.folds`` records, per platform, the operations folded, those
+left per call and the bytes kept.
 """
 from __future__ import annotations
 
 import io
 import json
+import operator
 import pathlib
+import types
 import zipfile
 from typing import NamedTuple
 
@@ -51,6 +61,7 @@ from .model import _resolve_method
 from .ops import library as _library  # noqa: F401  registers the custom ops
 
 __all__ = [
+    "FoldRecord",
     "ServingArtifact",
     "export_predictor",
     "export_sampler",
@@ -79,6 +90,225 @@ def _specs(nodes):
     return tuple(out)
 
 
+# ------------------------------------------------------------------- folding
+class FoldRecord(NamedTuple):
+    """What folding one platform's program did: `folded` operations left
+    the per-call graph (evaluated once, or dead), `per_call` operations run
+    in every call, and `kept_bytes` of folded values stay on the device for
+    them."""
+
+    folded: int
+    per_call: int
+    kept_bytes: int
+
+
+_CALLS = ("call_function", "call_method", "call_module")
+_NONDETERMINISTIC = {torch.Tag.nondeterministic_seeded, torch.Tag.nondeterministic_bitwise}
+# pure though torch.fx calls them impure: detach_ writes autograd's record,
+# not the values; a metadata check on constants holds in every call or none
+_PURE = {operator.getitem, torch.ops.aten.detach_.default,
+         torch.ops.aten._assert_tensor_metadata.default}
+
+
+def _attr(module, target):
+    for name in target.split("."):
+        module = getattr(module, name)
+    return module
+
+
+def _nodes(value):
+    found = []
+    torch.fx.node.map_arg(value, found.append)
+    return found
+
+
+def _functorch():
+    """The calls by which an exported graph enters and leaves a vmap:
+    (its decompositions' loader, the level's increment, its decrement,
+    all of them with the batch dimension's own)."""
+    from torch._functorch import predispatch as p
+
+    load, inc, dec, add, remove = (getattr(p, name, None) for name in (
+        "lazy_load_decompositions", "_vmap_increment_nesting", "_vmap_decrement_nesting",
+        "_add_batch_dim", "_remove_batch_dim"))
+    return load, inc, dec, {load, inc, dec, add, remove}
+
+
+def _vmap_regions(graph, load, inc, dec):
+    """Each outermost vmap of `graph`: its nodes from the loader before the
+    level's increment to its decrement."""
+    regions, depth = [], 0
+    for node in graph.nodes:
+        if node.target is inc:
+            if not depth:
+                regions.append([node.prev] if load and node.prev.target is load else [])
+            depth += 1
+        if depth:
+            regions[-1].append(node)
+        if node.target is dec:
+            depth = max(depth - 1, 0)
+    return regions
+
+
+def _aliases(node):
+    """The input nodes whose storage `node`'s value may share, and those it
+    writes into: by the operator's schema; anything else (``getitem``, a
+    module) may share all its inputs, and writes them where it is impure."""
+    schema = getattr(node.target, "_schema", None)
+    if node.op != "call_function" or schema is None:
+        inputs = node.all_input_nodes
+        writes = node.op == "call_method" or (node.op in _CALLS and node.is_impure())
+        return inputs, inputs if writes else []
+    shared, written = [], []
+    for i, arg in enumerate(schema.arguments):
+        if arg.alias_info is None:
+            continue
+        nodes = _nodes(node.args[i] if i < len(node.args) else node.kwargs.get(arg.name))
+        shared += nodes
+        if arg.alias_info.is_write and node.target is not torch.ops.aten.detach_.default:
+            written += nodes
+    return shared, written
+
+
+def _pure(node, module):
+    """An operator call free of side effects and of random draws, or a
+    grad-mode region of such calls; a Python function (functorch's vmap
+    levels) never is."""
+    if node.op != "call_function":
+        return False
+    target = node.target
+    if target in _PURE:
+        return True
+    if target is getattr(torch.ops.higher_order, "wrap_with_set_grad_enabled", None):
+        body = _attr(module, node.args[1].target)
+        return all(_pure(n, body) for n in body.graph.nodes if n.op in _CALLS)
+    return (isinstance(target, torch._ops.OpOverload) and not node.is_impure()
+            and not _NONDETERMINISTIC.intersection(target.tags))
+
+
+def _static(val):
+    """A tensor of fixed shape, or a tuple of them."""
+    if isinstance(val, (tuple, list)):
+        return bool(val) and all(_static(v) for v in val)
+    return isinstance(val, torch.Tensor) and all(isinstance(d, int) for d in val.shape)
+
+
+def _constant(node, const, module):
+    """Whether `node` is a constant of the program: frozen state (a tensor,
+    or a grad-mode region's graph), or a pure call on constants only whose
+    value is a tensor of fixed shape, a tuple of them that is only indexed,
+    or nothing that anything reads."""
+    if node.op == "get_attr":
+        return isinstance(_attr(module, node.target), (torch.Tensor, torch.fx.GraphModule))
+    val = node.meta.get("val")
+    return (_pure(node, module) and all(a in const for a in node.all_input_nodes)
+            and (_static(val) and (isinstance(val, torch.Tensor)
+                                   or all(u.target is operator.getitem for u in node.users))
+                 or val is None and not node.users))
+
+
+def _constant_region(region, const, module, levels):
+    """Whether a vmap region is constant as a whole: pure calls and the
+    vmap's own, on constants or on each other, its results of fixed shape."""
+    inside = set(region)
+    for node in region:
+        if node.target not in levels and not _pure(node, module):
+            return False
+        if any(a not in const and a not in inside for a in node.all_input_nodes):
+            return False
+        val = node.meta.get("val")
+        if any(u not in inside for u in node.users) and not (
+                isinstance(val, torch.Tensor) and _static(val)):
+            return False
+    return True
+
+
+def _fold(module):
+    """Fold the part of an unlifted program (`ExportedProgram.module()`)
+    that depends only on its frozen state, in place: evaluate it once, keep
+    as buffers the values that per-call operations or the outputs read, and
+    drop the rest. A node that reads a request argument, a symbolic size, a
+    random draw or storage that an in-place operation writes stays per
+    call, so the answers are those of the unfolded program. A vmap folds
+    whole or not at all (its levels are state of the process)."""
+    graph = module.graph
+    before = sum(n.op in _CALLS for n in graph.nodes)
+    # storage classes: a node with the inputs it may share storage with
+    root = {}
+
+    def find(n):
+        while root.get(n, n) is not n:
+            n = root[n]
+        return n
+
+    written = []
+    for node in graph.nodes:
+        shared, writes = _aliases(node)
+        for a in shared:
+            ra, rn = find(a), find(node)
+            if ra is not rn:
+                root[ra] = rn
+        written += writes
+    mutated = {find(n) for n in written}
+
+    load, inc, dec, levels = _functorch()
+    regions = {r[0]: r for r in _vmap_regions(graph, load, inc, dec)}
+    const = {}  # insertion-ordered: the graph's order
+    for node in graph.nodes:
+        if node in const:
+            continue
+        region = regions.get(node)
+        if region is not None and all(find(n) not in mutated for n in region) \
+                and _constant_region(region, const, module, levels):
+            const.update(dict.fromkeys(region))
+        elif find(node) not in mutated and _constant(node, const, module):
+            const[node] = None
+    kept = {n for n in const if any(u not in const for u in n.users)}
+    left = {n: sum(u in const for u in n.users) for n in const}
+    frozen = {t.untyped_storage().data_ptr() for t in module.buffers()}
+    frozen |= {t.untyped_storage().data_ptr() for t in module.parameters()}
+    env, kept_bytes, storages = {}, 0, set()
+
+    def release(n):  # an intermediate after its last reader
+        if not left[n] and n not in kept:
+            del env[n]
+
+    with torch.no_grad():
+        for node in const:  # in order: a vmap's levels rise and fall as in a call
+            if node.op == "get_attr":
+                env[node] = _attr(module, node.target)
+            else:
+                env[node] = node.target(*torch.fx.node.map_arg(node.args, env.__getitem__),
+                                        **torch.fx.node.map_arg(node.kwargs, env.__getitem__))
+            for a in node.all_input_nodes:
+                left[a] -= 1
+                release(a)
+            release(node)
+    for i, node in enumerate(n for n in const if n in kept and n.op != "get_attr"):
+        value, name = env.pop(node), "_folded%d" % i
+        module.register_buffer(name, value, persistent=False)
+        with graph.inserting_before(node):
+            attr = graph.get_attr(name)
+        attr.meta.update(node.meta)
+        node.replace_all_uses_with(attr, delete_user_cb=lambda u: u not in const)
+        for out in [u for u in attr.users if u.op == "output"]:
+            with graph.inserting_before(out):  # an answer the caller may write into
+                copy = graph.call_function(torch.ops.aten.clone.default, (attr,))
+            copy.meta.update(node.meta)
+            out.replace_input_with(attr, copy)
+        ptr = value.untyped_storage().data_ptr()
+        if ptr not in frozen and ptr not in storages:
+            storages.add(ptr)
+            kept_bytes += value.untyped_storage().nbytes()
+    for node in reversed(graph.nodes):  # the folded nodes and the reads left unread
+        if not node.users and (node in const or node.op == "get_attr"):
+            graph.erase_node(node)
+    graph.lint()
+    module.recompile()
+    after = sum(n.op in _CALLS for n in graph.nodes)
+    return FoldRecord(before - after, after, kept_bytes)
+
+
 class ServingArtifact:
     """Exported programs, one per platform: call it like a function,
     ``save`` it to disk or ``serialize()`` it to bytes."""
@@ -88,6 +318,7 @@ class ServingArtifact:
         self._programs = dict(programs)
         self._modules = {}
         self._in_specs = {}
+        self._folds = {}
 
     def _program(self, platform):
         if platform not in self._programs:
@@ -111,7 +342,9 @@ class ServingArtifact:
     def __call__(self, *args):
         platform = self._platform(args)
         if platform not in self._modules:
-            self._modules[platform] = self._program(platform).module()
+            module = self._program(platform).module()
+            self._folds[platform] = _fold(module)
+            self._modules[platform] = module
             self._in_specs[platform] = self.in_specs_of(platform)
         specs = self._in_specs[platform]
         dev = torch.device(platform)
@@ -148,6 +381,12 @@ class ServingArtifact:
         ep = self._program(platform)
         names = set(ep.graph_signature.user_inputs)
         return _specs(n for n in ep.graph.nodes if n.op == "placeholder" and n.name in names)
+
+    @property
+    def folds(self):
+        """``{platform: FoldRecord}`` of the programs called so far (a
+        read-only view)."""
+        return types.MappingProxyType(self._folds)
 
     @property
     def in_specs(self):

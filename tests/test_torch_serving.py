@@ -183,6 +183,11 @@ def test_sampler_export_reproducible_draws():
     assert s0.shape == (16, 15, 1)
     assert torch.equal(s0, s1)
     assert (s0 - s2).abs().max() > 1e-6
+    # folded at the first call: the draws stay per call, the factor does not
+    unfolded = art._program("cpu").module()
+    assert torch.equal(s0, unfolded(torch.tensor(7), torch.tensor(grid)))
+    assert torch.equal(s2, unfolded(torch.tensor(8), torch.tensor(grid)))
+    assert "aten.linalg_cholesky_ex.default" not in _targets(art._modules["cpu"])
     mean = s0.mean(0)[:, 0].numpy()
     assert np.abs(mean - np.sin(grid[:, 0])).max() < 1.0
     # the draws are the posterior's: their spread matches the port's own
@@ -254,6 +259,10 @@ def test_export_sparse_laplace_classifier():
                                atol=1e-4)
     p2 = art(torch.tensor(_grid(11, 1.0, 5.0)))
     assert p2.shape == (11, 1) and ((p2 > 0) & (p2 < 1)).all()
+    # the Newton loop (its vmaps and autograd regions) reads only the
+    # frozen state: it folds whole, and the request's solve is left
+    assert "aten.linalg_cholesky_ex.default" not in _targets(art._modules["cpu"])
+    assert art.folds["cpu"].folded > 10 * art.folds["cpu"].per_call
 
 
 def test_multioutput_predictor_reaches_both_custom_ops():
@@ -277,6 +286,11 @@ def test_multioutput_predictor_reaches_both_custom_ops():
         got = art(torch.tensor(g))
         _close(got, tm.run(lambda mm: mm.predict_f(g)))
         _close(got, jart(jnp.asarray(g)), rtol=1e-4, atol=1e-5)
+    # folded at the first call: the [Q, n, n] grams' ladder runs once, the
+    # request's batched solve in every call
+    per_call = _targets(art._modules["cpu"])
+    assert "henbun_tpu_torch.cholesky128.default" not in per_call
+    assert "henbun_tpu_torch.tri_solve128.default" in per_call
 
 
 def test_export_runs_the_masked_ladder():
@@ -305,3 +319,121 @@ def test_export_runs_the_masked_ladder():
 
     ep = torch.export.export(Factor(), (A,))
     assert torch.equal(ep.module()(A), eager)
+
+    class FrozenFactor(torch.nn.Module):
+        """The batch frozen into the program: its ladder folds."""
+
+        def __init__(self):
+            super().__init__()
+            self.register_buffer("a", A)
+
+        def forward(self, x):
+            L = linalg.safe_cholesky(self.a, jitter)
+            return L, L @ x
+
+    x = torch.tensor(np.random.default_rng(1).normal(size=(3, n, 2)).astype(np.float32))
+    ep = torch.export.export(FrozenFactor(), (x,))
+    art = serving.ServingArtifact({"cpu": ep})
+    for _ in range(2):
+        L, Lx = art(x)
+        assert torch.equal(L, eager)
+        assert torch.equal(Lx, ep.module()(x)[1])
+        L.zero_()  # the answer is the caller's: the folded factor stays
+    assert not {t for t in _targets(art._modules["cpu"]) if "cholesky" in t}
+    assert art.folds["cpu"].kept_bytes >= L.nbytes
+
+
+# ------------------------------------------------------------------ folding
+def _targets(module):
+    return {str(n.target) for n in module.graph.nodes if n.op == "call_function"}
+
+
+@pytest.fixture(scope="module")
+def folded_marginal(fitted_marginal):
+    """A batch-polymorphic GPRMarginal.predict_f artifact, folded by its
+    first call, beside the unfolded program of the same export."""
+    _, tm = fitted_marginal
+    art = serving.export_predictor(tm, thb.models.GPRMarginal.predict_f, _grid(8),
+                                   platforms=CPU, batch_polymorphic=True)
+    art(torch.tensor(_grid(8)))
+    return tm, art, art._program("cpu").module()
+
+
+@pytest.mark.parametrize("n", (1, 5, 64, 200))
+def test_folded_predictor_equals_the_unfolded_program(folded_marginal, n):
+    """The factor and alpha are computed once, by the same float32
+    operations on the same inputs: the answers are the unfolded program's
+    bit for bit, and the eager model's within the file's bound."""
+    tm, art, unfolded = folded_marginal
+    g = _grid(n, -1.0, 7.0)
+    got = art(torch.tensor(g))
+    assert got[0].shape == (n, 1)
+    for a, b in zip(got, unfolded(torch.tensor(g))):
+        assert torch.equal(a, b)
+    _close(got, tm.run(lambda mm: mm.predict_f(g)))
+
+
+def test_fold_record_shows_the_factor_folded(folded_marginal):
+    """No factorization is left in the per-call graph; the request's solve
+    is. The saved program is untouched: it still holds the ladder."""
+    _, art, unfolded = folded_marginal
+    rec = art.folds["cpu"]
+    per_call = _targets(art._modules["cpu"])
+    assert "aten.linalg_cholesky_ex.default" not in per_call
+    assert "aten.linalg_solve_triangular.default" in per_call
+    assert "aten.linalg_cholesky_ex.default" in _targets(unfolded)
+    assert "aten.linalg_cholesky_ex.default" in _targets(art._program("cpu"))
+    calls = sum(n.op in ("call_function", "call_module") for n in unfolded.graph.nodes)
+    assert rec.folded > 0 and rec.folded + rec.per_call == calls
+    n = 30  # training points: at least the factor [n, n] and alpha [n, 1] stay
+    assert rec.kept_bytes >= 4 * (n * n + n)
+    with pytest.raises(TypeError):
+        art.folds["cpu"] = rec
+
+
+class _Affine(torch.nn.Module):
+    """Every output reads the request: nothing to fold."""
+
+    def __init__(self):
+        super().__init__()
+        self.register_buffer("w", torch.tensor([[2.0, -1.0]]))
+
+    def forward(self, x):
+        return x @ self.w + x.sum()
+
+
+class _Accumulate(torch.nn.Module):
+    """An in-place write of the request into a value of the frozen state:
+    the value stays per call, or a second call would add to the first."""
+
+    def __init__(self):
+        super().__init__()
+        self.register_buffer("a", torch.arange(3.0))
+
+    def forward(self, x):
+        t = self.a * 2.0
+        t.add_(x.sum())
+        return t + 1.0
+
+
+@pytest.mark.parametrize("program", [_Affine, _Accumulate], ids=["affine", "in-place"])
+def test_per_call_programs_fold_nothing(program):
+    ep = torch.export.export(program(), (torch.ones(4, 1),))
+    art = serving.ServingArtifact({"cpu": ep})
+    unfolded = ep.module()
+    for x in (torch.ones(4, 1), torch.full((4, 1), 3.0), torch.ones(4, 1)):
+        assert torch.equal(art(x), unfolded(x))
+    assert art.folds["cpu"].folded == 0 and art.folds["cpu"].kept_bytes == 0
+
+
+def test_a_random_draw_stays_per_call():
+    """A draw that reads no request is still no constant: each call draws."""
+
+    class Draw(torch.nn.Module):
+        def forward(self, x):
+            return x + torch.rand(3)
+
+    art = serving.ServingArtifact({"cpu": torch.export.export(Draw(), (torch.zeros(3),))})
+    a, b = art(torch.zeros(3)), art(torch.zeros(3))
+    assert a.shape == (3,) and not torch.equal(a, b)
+    assert "aten.rand.default" in _targets(art._modules["cpu"])
